@@ -32,3 +32,5 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running stress test (deselect with "
         "-m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips where none is present")
