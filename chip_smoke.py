@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port (nxsearch_tpu_torch) on one card.
 
-Drives the port's main path -- BM25 top-10 batch search with fuzzy
-(typo) resolution -- once at the benchmark's 1M-document tier, through
-the entry points a user calls (Nxs, Index.add_many, search_pipelined,
-search_many), and checks every hand-written kernel of that path
+Drives the port's paths -- BM25 top-10 batch search with fuzzy (typo)
+resolution, boolean (AND / NOT) search on the masked sliced route and on
+the blockdense route -- at the benchmark's 1M-document tier, through the
+entry points a user calls (Nxs, Index.add_many, search_pipelined,
+search_many), and checks every hand-written kernel of those paths
 against its plain PyTorch twin.  Phases (any failure exits non-zero
 and prints no result):
 
 1. card check and kernel build: needs torch.cuda; prints the card's
-   name and power limit; builds csrc/*.cu with nvcc (first use);
+   name and power limit; builds csrc/*.cu with nvcc (first use), one
+   nvcc per source, all started together;
 2. kernel phase: the Myers kernel against myers_distances_ref at the
    main path's shape (one chunk of M = 64 typo rows over the length
    band's region, which in the bench vocabulary -- all 200,000 terms
@@ -25,7 +27,28 @@ and prints no result):
    plain and 16 sampled fuzzy queries against a straightforward numpy
    oracle -- Levenshtein over the host's term dictionary for words it
    lacks, BM25 over the host CSR -- (same top-10 ids under the
-   lowest-device-slot tie rule, scores within 1e-4).
+   lowest-device-slot tie rule, scores within 1e-4);
+4. mixed phase: bench.make_mixed_queries (8192 queries: 25 % AND /
+   AND NOT rows, 5 % typos) through search_pipelined in batches of
+   2048 on the default route, after one warm-up pass; three passes,
+   median QPS; asserts masked sliced rows and masked dense-row hybrid
+   rows > 0;
+5. blockdense phase: 512 masked queries that each hold a dense-row
+   term (``d AND a``, ``a b AND NOT d``) through search_many with the
+   masked hybrid off (search._MASKED_HYBRID, as NXS_MASKED_HYBRID=0
+   sets it), so they take the blockdense route; asserts blockdense rows
+   and segsum launches > 0 and every answer equal to the same query on
+   the default route (both are exact: same ids up to an adjacent swap
+   of scores within 1e-4, scores within 1e-4);
+6. segsum phase: the segsum kernel against blockdense_scores_ref at the
+   blockdense route's shape (the 64 first blockdense queries: bounds
+   rows from the snapshot's cache, 8 terms, every slot, BM25, presence
+   bits), scores and bits equal bit for bit, both timed with CUDA
+   events;
+7. boolean oracle: 64 sampled masked queries of each of phases 4 and 5,
+   their parsed query trees walked over per-term document sets of the
+   host CSR, BM25 over the matching documents (same tie rule and
+   tolerance as phase 3).
 
 The next-to-last lines are the kernel table (JSON) and the card line;
 the last line is {"ok": true, "device": {...}}.
@@ -54,6 +77,10 @@ BATCH = 2048
 N_FUZZY = 512
 N_ORACLE = 64
 N_FUZZY_ORACLE = 16
+N_MIXED = 8192
+N_BD = 512
+N_SEGSUM = 64           # blockdense queries in the segsum kernel phase
+N_BOOL_ORACLE = 64      # per masked phase
 PASSES = 3              # measured passes (median reported)
 TOL = 1e-4               # score tolerance of the reference's own tests
 
@@ -214,6 +241,16 @@ def ingest(workdir: str):
     return nxs, idx, ingest_s
 
 
+def vocab():
+    """bench.py's vocabulary and its Zipf term probabilities."""
+    import numpy as np
+
+    ranks = np.arange(VOCAB, dtype=np.float64)
+    probs = 1.0 / (ranks + 10.0)
+    probs /= probs.sum()
+    return np.array([f"w{i:05d}" for i in range(VOCAB)]), probs
+
+
 def workload():
     """bench.py's query mix: (queries, batches of BATCH, four sets of
     N_FUZZY typo queries with distinct salts)."""
@@ -221,10 +258,7 @@ def workload():
 
     import bench
 
-    ranks = np.arange(VOCAB, dtype=np.float64)
-    probs = 1.0 / (ranks + 10.0)
-    probs /= probs.sum()
-    words = np.array([f"w{i:05d}" for i in range(VOCAB)])
+    words, probs = vocab()
     rng = np.random.default_rng(42)
     queries = bench.make_queries(N_QUERIES, words, probs, rng)
     batches = [queries[i: i + BATCH] for i in range(0, N_QUERIES, BATCH)]
@@ -235,25 +269,102 @@ def workload():
     return queries, batches, fuzzy
 
 
-def slice_phase(workdir: str) -> dict:
+class HostOracle:
+    """The host CSR in host slot order and what the oracles need
+    beside it: each slot's rank in device order (the tie rule), the
+    slot of each doc id, and the term dictionary by byte length."""
+
+    def __init__(self, idx):
+        import numpy as np
+
+        self.idx = idx
+        self.host = host = idx.host
+        self.csr = csr = host.build_csr()
+        dl_host = np.asarray(csr["doc_len"][: host.doc_ids.n],
+                             dtype=np.float32)
+        self.dev_rank = np.empty(len(dl_host), dtype=np.int64)
+        self.dev_rank[np.argsort(dl_host, kind="stable")] = \
+            np.arange(len(dl_host))
+        self.slot_of_id = {int(d): s for s, d in enumerate(csr["doc_ids"])}
+        encoded = [v.encode("utf-8") for v in host.term_values]
+        self.by_len = {}
+        for n in {len(e) for e in encoded}:
+            ids = np.array([i for i, e in enumerate(encoded) if len(e) == n])
+            self.by_len[n] = (ids, np.frombuffer(
+                b"".join(encoded[i] for i in ids),
+                dtype=np.uint8).reshape(-1, n))
+        self.n_typos = 0
+
+    def resolve(self, value: str):
+        """Term id of a raw query word: the pipeline's filtered form in
+        the dictionary, else its numpy Levenshtein match, else None."""
+        f = self.idx.pipeline.run(value)
+        if f is None:
+            return None
+        t = self.host.term_lookup(f)
+        if t is None:
+            t = fuzzy_oracle(self.host, self.by_len, f.encode("utf-8"))
+            self.n_typos += t is not None
+        return t
+
+    def check_plain(self, q, resp):
+        tids = []
+        for v in q.split():
+            t = self.resolve(v)
+            if t is not None and t not in tids:
+                tids.append(t)
+        ids_o, sc_o, acc = oracle_top(self.csr, self.host, tids,
+                                      self.dev_rank, 10)
+        check_against_oracle(resp, ids_o, sc_o, acc, self.slot_of_id, q)
+
+    def check_boolean(self, q, resp):
+        """Walk the parsed query tree over per-term document sets (AND
+        intersects, OR unites, NOT subtracts, an unresolved word is the
+        empty set), then BM25 over the matching documents."""
+        import numpy as np
+
+        from nxsearch_tpu_torch.query.ast import (EXPR_OP_AND, EXPR_OP_OR,
+                                                  EXPR_VAL_TOKEN)
+        from nxsearch_tpu_torch.query.parser import parse_query
+
+        csr = self.csr
+        n_slots = len(csr["doc_len"])
+        tids = []
+
+        def docs(expr):
+            if expr.type == EXPR_VAL_TOKEN:
+                out = np.zeros(n_slots, dtype=np.bool_)
+                t = self.resolve(expr.value)
+                if t is not None:
+                    if t not in tids:
+                        tids.append(t)
+                    lo, hi = csr["term_starts"][t - 1], csr["term_starts"][t]
+                    out[csr["postings_slot"][lo:hi]] = True
+                return out
+            left, right = (docs(e) for e in expr.elements)
+            if expr.type == EXPR_OP_AND:
+                return left & right
+            if expr.type == EXPR_OP_OR:
+                return left | right
+            return left & ~right                   # NOT: L AND NOT R
+
+        match = docs(parse_query(q))
+        _ids, _sc, acc = oracle_top(csr, self.host, tids, self.dev_rank, 10)
+        acc = np.where(match, acc, 0.0)
+        hit = np.nonzero(acc > 0.0)[0]
+        order = np.lexsort((self.dev_rank[hit], -acc[hit]))[:10]
+        check_against_oracle(resp, csr["doc_ids"][hit[order]],
+                             acc[hit[order]], acc, self.slot_of_id, q)
+
+
+def slice_phase(idx, sp, ingest_s: float, oracle: HostOracle) -> dict:
     import numpy as np
     import torch
 
-    from nxsearch_tpu_torch import Params
     from nxsearch_tpu_torch import search as search_mod
     from nxsearch_tpu_torch.ops import kernels
 
-    nxs, idx, ingest_s = ingest(workdir)
-    sp = Params().set_uint("limit", 10)
-    t0 = time.perf_counter()
-    idx.search("w00001", sp)            # first search builds the snapshot
-    torch.cuda.synchronize()
-    snapshot_s = time.perf_counter() - t0
     dev = idx.dev
-    log(f"snapshot build: {snapshot_s:.1f} s, {dev.n_postings} padded "
-        f"postings, {dev.dense_rows.shape[0]} dense rows, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-
     queries, batches, fuzzy = workload()
     # Warm-up (allocator, pinned buffers, fuzzy snapshot upload).
     idx.search_pipelined(batches, sp)
@@ -261,8 +372,7 @@ def slice_phase(workdir: str) -> dict:
     torch.cuda.synchronize()
 
     # The measured main-path run: counters from zero.
-    kernels.MYERS.launches = 0
-    search_mod.EXEC_STATS.clear()
+    reset_counts()
     qps_samples, fz_samples = [], []
     for p in range(PASSES):
         t0 = time.perf_counter()
@@ -298,57 +408,239 @@ def slice_phase(workdir: str) -> dict:
         raise AssertionError(f"prefix and sliced rows expected: {stats}")
     if len(results) != len(batches) or len(fz_results) != N_FUZZY:
         raise AssertionError("missing responses")
-    n_hits = sum(len(r.results) for b in results for r in b)
-    if n_hits == 0 or not all(np.isfinite(s) for b in results for r in b
-                              for _, s in r.results):
-        raise AssertionError("empty or non-finite results")
+    check_finite([r for b in results for r in b])
 
-    # Oracle check of sampled queries (host CSR in host slot order).
-    # Words the dictionary lacks resolve through the numpy Levenshtein
-    # oracle, so the fuzzy answers are checked independently of the
-    # kernel.
-    host = idx.host
-    csr = host.build_csr()
-    dl_host = np.asarray(csr["doc_len"][: host.doc_ids.n],
-                         dtype=np.float32)
-    dev_rank = np.empty(len(dl_host), dtype=np.int64)
-    dev_rank[np.argsort(dl_host, kind="stable")] = np.arange(len(dl_host))
-    slot_of_id = {int(d): s for s, d in enumerate(csr["doc_ids"])}
-    encoded = [v.encode("utf-8") for v in host.term_values]
-    by_len = {}
-    for n in {len(e) for e in encoded}:
-        ids = np.array([i for i, e in enumerate(encoded) if len(e) == n])
-        by_len[n] = (ids, np.frombuffer(b"".join(encoded[i] for i in ids),
-                                        dtype=np.uint8).reshape(-1, n))
+    # Oracle check of sampled queries.  Words the dictionary lacks
+    # resolve through the numpy Levenshtein oracle, so the fuzzy
+    # answers are checked independently of the kernel.
     flat = [r for b in results for r in b]
     rng = np.random.default_rng(7)
     sample = ([(queries[int(i)], flat[int(i)]) for i in
                rng.choice(N_QUERIES, N_ORACLE, replace=False)]
               + [(fuzzy[1][int(i)], fz_results[int(i)]) for i in
                  rng.choice(N_FUZZY, N_FUZZY_ORACLE, replace=False)])
-    n_typos = 0
+    oracle.n_typos = 0
     for q, resp in sample:
-        tids = []
-        for v in q.split():
-            f = idx.pipeline.run(v)
-            if f is None:
-                continue
-            t = host.term_lookup(f)
-            if t is None:
-                t = fuzzy_oracle(host, by_len, f.encode("utf-8"))
-                n_typos += t is not None
-            if t is not None and t not in tids:
-                tids.append(t)
-        ids_o, sc_o, acc = oracle_top(csr, host, tids, dev_rank, 10)
-        check_against_oracle(resp, ids_o, sc_o, acc, slot_of_id, q)
-    if n_typos < N_FUZZY_ORACLE:
-        raise AssertionError(f"only {n_typos} typo tokens resolved")
+        oracle.check_plain(q, resp)
+    if oracle.n_typos < N_FUZZY_ORACLE:
+        raise AssertionError(f"only {oracle.n_typos} typo tokens resolved")
     log(f"oracle: {N_ORACLE} plain and {N_FUZZY_ORACLE} fuzzy sampled "
-        f"queries agree ({n_typos} typo tokens resolved)")
-    nxs.close()
+        f"queries agree ({oracle.n_typos} typo tokens resolved)")
     return {"qps": qps, "fuzzy_qps": fz_qps, "qps_samples": qps_samples,
-            "fuzzy_qps_samples": fz_samples, "snapshot_s": snapshot_s,
-            "ingest_s": ingest_s, "launches": launches, "stats": stats}
+            "fuzzy_qps_samples": fz_samples, "launches": launches,
+            "stats": stats}
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count and the route counters to 0."""
+    from nxsearch_tpu_torch import search as search_mod
+    from nxsearch_tpu_torch.ops import kernels
+
+    kernels.MYERS.launches = 0
+    kernels.SEGSUM.launches = 0
+    search_mod.EXEC_STATS.clear()
+
+
+def check_finite(responses) -> None:
+    import numpy as np
+
+    n_hits = sum(len(r.results) for r in responses)
+    if n_hits == 0 or not all(np.isfinite(s) for r in responses
+                              for _, s in r.results):
+        raise AssertionError("empty or non-finite results")
+
+
+def mixed_phase(idx, sp) -> dict:
+    """bench's mixed trace on the default route (masked sliced rows,
+    masked dense-row hybrid rows)."""
+    import numpy as np
+    import torch
+
+    import bench
+    from nxsearch_tpu_torch import search as search_mod
+    from nxsearch_tpu_torch.ops import kernels
+
+    words, probs = vocab()
+    queries = bench.make_mixed_queries(N_MIXED, words, probs,
+                                       np.random.default_rng(43))
+    batches = [queries[i: i + BATCH] for i in range(0, N_MIXED, BATCH)]
+    idx.search_pipelined(batches, sp)           # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    samples = []
+    for p in range(PASSES):
+        t0 = time.perf_counter()
+        out = idx.search_pipelined(batches, sp)
+        samples.append(N_MIXED / (time.perf_counter() - t0))
+        if p == 0:
+            results = [r for b in out for r in b]
+    stats = dict(sorted(search_mod.EXEC_STATS.items()))
+    # Typos resolved by the warm-up stay cached, so the measured passes
+    # may launch no kernel at all; reported, not asserted.
+    launches = {"myers_distances": kernels.MYERS.launches,
+                "blockdense_scores": kernels.SEGSUM.launches}
+    qps = float(np.median(samples))
+    n_masked = sum(" AND " in q for q in queries)
+    log(f"mixed search_pipelined ({N_MIXED} queries, {n_masked} masked, "
+        f"batches of {BATCH}): median {qps:.1f} QPS of "
+        f"{[round(x, 1) for x in samples]}")
+    log(f"mixed route split: {stats}; kernel launches: {launches}")
+    if (stats.get("sliced_masked", 0) <= 0
+            or stats.get("sliced_masked_rows", 0) <= 0):
+        raise AssertionError(f"masked sliced and masked-hybrid rows "
+                             f"expected: {stats}")
+    if len(results) != N_MIXED:
+        raise AssertionError("missing responses")
+    check_finite(results)
+    return {"qps": qps, "qps_samples": samples, "stats": stats,
+            "launches": launches, "queries": queries, "results": results}
+
+
+def bd_queries(idx) -> list[str]:
+    """N_BD masked queries, each holding a dense-row term d: ``d AND a``
+    and ``a b AND NOT d`` with a, b from the mixed trace's word mix."""
+    import numpy as np
+
+    words, probs = vocab()
+    qp = probs ** 0.35
+    qp /= qp.sum()
+    values = idx.host.term_values
+    dense = [values[t - 1] for t in sorted(idx.dev.dense_row_of)]
+    if not dense:
+        raise AssertionError("the snapshot has no dense rows")
+    rng = np.random.default_rng(44)
+    out = []
+    for i in range(N_BD):
+        d = dense[int(rng.integers(0, len(dense)))]
+        a, b = (str(w) for w in words[rng.choice(len(words), 2, p=qp)])
+        out.append(f"{d} AND {a}" if i % 2 == 0 else f"{a} {b} AND NOT {d}")
+    return out
+
+
+def same_answer(ref, got, q) -> None:
+    """Ids identical in order except an adjacent swap of scores within
+    TOL; scores within TOL."""
+    ids_r = [d for d, _ in ref.results]
+    sc_r = [s for _, s in ref.results]
+    ids_g = [d for d, _ in got.results]
+    sc_g = [s for _, s in got.results]
+    if len(ids_g) != len(ids_r) or any(abs(a - b) > TOL
+                                       for a, b in zip(sc_g, sc_r)):
+        raise AssertionError(f"{q!r}: {list(zip(ids_g, sc_g))} vs "
+                             f"{list(zip(ids_r, sc_r))}")
+    i = 0
+    while i < len(ids_g):
+        if ids_g[i] != ids_r[i]:
+            if not (i + 1 < len(ids_g) and ids_g[i] == ids_r[i + 1]
+                    and ids_g[i + 1] == ids_r[i]
+                    and abs(sc_r[i] - sc_r[i + 1]) <= TOL):
+                raise AssertionError(f"{q!r} rank {i}: {ids_g} vs {ids_r}")
+            i += 1
+        i += 1
+
+
+def bd_phase(idx, sp) -> dict:
+    """Masked queries with dense-row terms on the blockdense route (the
+    masked hybrid off), held to the default route's answers."""
+    import torch
+
+    from nxsearch_tpu_torch import search as search_mod
+    from nxsearch_tpu_torch.ops import kernels
+
+    queries = bd_queries(idx)
+    search_mod._MASKED_HYBRID = False
+    try:
+        idx.search_many(queries[:64], sp)       # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = idx.search_many(queries, sp)
+        qps = N_BD / (time.perf_counter() - t0)
+        launches = kernels.SEGSUM.launches
+        stats = dict(sorted(search_mod.EXEC_STATS.items()))
+    finally:
+        search_mod._MASKED_HYBRID = True
+    log(f"blockdense search_many ({N_BD} queries): {qps:.1f} QPS; route "
+        f"split {stats}; segsum launches {launches}")
+    if stats.get("blockdense", 0) <= 0 or launches <= 0:
+        raise AssertionError(f"blockdense rows and segsum launches "
+                             f"expected: {stats}, {launches}")
+    want = idx.search_many(queries, sp)         # the default route
+    for q, w, g in zip(queries, want, got):
+        same_answer(w, g, q)
+    check_finite(got)
+    log(f"blockdense route: {N_BD} answers equal the default route's")
+    return {"qps": qps, "stats": stats, "launches": launches,
+            "queries": queries, "results": got}
+
+
+def segsum_phase(idx, queries: list[str]) -> dict:
+    """The segsum kernel against its plain twin at the blockdense
+    route's shape: the first N_SEGSUM blockdense queries' kernel terms
+    (bounds rows from the snapshot's cache), every slot, BM25."""
+    import numpy as np
+    import torch
+
+    from nxsearch_tpu_torch import Params
+    from nxsearch_tpu_torch import search as search_mod
+    from nxsearch_tpu_torch.ops import executor, kernels
+
+    dev = idx.dev
+    sp = search_mod.get_search_params(idx.algo,
+                                      Params().set_uint("limit", 10))
+    prepared = search_mod._prepare_many(dev, idx.pipeline,
+                                        queries[:N_SEGSUM], sp)
+    plans = search_mod._build_plans(dev, prepared, sp)
+    if any(p is None or not p.use_mask for p in plans):
+        raise AssertionError("segsum phase: every query must plan masked")
+    q_crow = np.stack([search_mod._kernel_crows(dev, p) for p in plans])
+    q_idf = np.stack([p.q_idf for p in plans])
+    bounds = dev._bounds_cache[torch.from_numpy(q_crow).to(
+        dev.device, torch.int64)].contiguous()
+    c2 = np.float32(1.2 * 0.75) / np.float32(max(dev.adl, 1e-9))
+    coef = np.stack([q_idf, np.full_like(q_idf, np.float32(1.2 * 0.25)),
+                     np.full_like(q_idf, c2), np.zeros_like(q_idf)], axis=2)
+    args = (dev.postings_slot, dev.postings_ltf, dev.doc_len,
+            executor.alive_factors(dev.alive_mask), bounds,
+            torch.from_numpy(coef).to(dev.device))
+
+    def kernel():
+        return kernels.blockdense_scores(*args, algo=0, use_mask=True)
+
+    def plain():
+        return kernels.blockdense_scores_ref(*args, algo=0, use_mask=True)
+
+    got_s, got_b = kernel()
+    want_s, want_b = plain()
+    torch.cuda.synchronize()
+    max_err = float((got_s - want_s).abs().max())
+    if not (torch.equal(got_s, want_s) and torch.equal(got_b, want_b)):
+        raise AssertionError(
+            f"segsum kernel disagrees with its twin: max |diff| {max_err}, "
+            f"{int((got_b != want_b).sum())} bit words differ")
+    if not bool((want_s > 0).any()):
+        raise AssertionError("segsum phase scored nothing")
+    kernel_ms = cuda_time_ms(kernel, 21)
+    plain_ms = cuda_time_ms(plain, 5)
+    n_post = int((bounds[:, :, -1] - bounds[:, :, 0]).sum())
+    log(f"segsum phase: N={bounds.shape[0]} Q={bounds.shape[1]} "
+        f"S={dev.n_slots} ({n_post} postings): scores and bits exact; "
+        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms}
+
+
+def boolean_oracle(oracle: HostOracle, mixed: dict, bd: dict) -> None:
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    n = 0
+    for phase in (mixed, bd):
+        masked = [i for i, q in enumerate(phase["queries"]) if " AND " in q]
+        for i in rng.choice(masked, N_BOOL_ORACLE, replace=False):
+            oracle.check_boolean(phase["queries"][int(i)],
+                                 phase["results"][int(i)])
+            n += 1
+    log(f"boolean oracle: {n} sampled masked queries agree")
 
 
 def main() -> int:
@@ -358,23 +650,50 @@ def main() -> int:
             "false)")
         return 1
     sys.path.insert(0, ROOT)
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nxsearch_tpu_torch import Params
     from nxsearch_tpu_torch.ops import kernels
 
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    kernels.MYERS.build()
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda k: k.build(), (kernels.MYERS, kernels.SEGSUM)))
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
 
     kern = kernel_phase()
+    sp = Params().set_uint("limit", 10)
     with tempfile.TemporaryDirectory() as workdir:
-        sl = slice_phase(workdir)
+        nxs, idx, ingest_s = ingest(workdir)
+        try:
+            t0 = time.perf_counter()
+            idx.search("w00001", sp)    # first search builds the snapshot
+            torch.cuda.synchronize()
+            snapshot_s = time.perf_counter() - t0
+            dev = idx.dev
+            log(f"snapshot build: {snapshot_s:.1f} s, {dev.n_postings} "
+                f"padded postings, {dev.dense_rows.shape[0]} dense rows, "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                "allocated")
+            oracle = HostOracle(idx)
+            sl = slice_phase(idx, sp, ingest_s, oracle)
+            mixed = mixed_phase(idx, sp)
+            bd = bd_phase(idx, sp)
+            seg = segsum_phase(idx, bd["queries"])
+            boolean_oracle(oracle, mixed, bd)
+        finally:
+            nxs.close()
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    log(json.dumps({"slice": {k: sl[k] for k in (
-        "qps", "qps_samples", "fuzzy_qps", "fuzzy_qps_samples",
-        "snapshot_s", "ingest_s", "stats")}, "docs": N_DOCS}))
+    log(json.dumps({
+        "slice": {k: sl[k] for k in ("qps", "qps_samples", "fuzzy_qps",
+                                     "fuzzy_qps_samples", "stats")},
+        "mixed": {k: mixed[k] for k in ("qps", "qps_samples", "stats",
+                                        "launches")},
+        "blockdense": {k: bd[k] for k in ("qps", "stats", "launches")},
+        "snapshot_s": snapshot_s, "ingest_s": ingest_s, "docs": N_DOCS}))
 
     print(json.dumps({"kernels": [{
         "name": "myers_distances", "route": "cuda",
@@ -382,7 +701,13 @@ def main() -> int:
         "replaces": "nxsearch_tpu/ops/pallas/fuzzy.py:52",
         "launches": sl["launches"]["myers_distances"],
         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"]}]}))
+        "plain_ms": kern["plain_ms"]}, {
+        "name": "blockdense_scores", "route": "cuda",
+        "source": "nxsearch_tpu_torch/csrc/segsum.cu",
+        "replaces": "nxsearch_tpu/ops/pallas/segsum.py:162",
+        "launches": bd["launches"],
+        "max_abs_err": seg["max_abs_err"], "ms": seg["ms"],
+        "plain_ms": seg["plain_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

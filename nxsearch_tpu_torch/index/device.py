@@ -11,6 +11,10 @@ device tensors:
     alive_mask    int32[S_pad/32]        packed little-bit-order bitmap
     dense_rows    f32[max(H, 1), S_pad]  ltf by device slot, heavy terms
 
+The blockdense executor also reads the pack's slot and ltf columns
+(``postings_slot`` / ``postings_ltf``, derived on first use) and a
+per-term LRU cache of 1024-slot block bounds (``bounds_crows``).
+
 Device slots ascend by document length; ``slot_perm`` maps a device
 slot back to its host slot.  Removals flip alive bits; additions stay
 on the host as the delta (scored by search._delta_results) until the
@@ -31,7 +35,9 @@ guard width.
 from __future__ import annotations
 
 import os
+import threading
 import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -108,6 +114,10 @@ class DeviceIndex:
     # absorb windows starting inside the postings.
     SLICE_MAX_T = 1 << 20
 
+    # Per-term bounds-cache rows (must exceed the unique kernel terms
+    # of one dispatch chunk; LRU beyond that).
+    BOUNDS_CACHE_ROWS = 8192
+
     # Impact-prefix parameters: terms with base df above
     # max(PREFIX_CAP, WIDE_MIN_DF) are "wide" (see the module note).
     PREFIX_CAP = int(os.environ.get("NXS_PREFIX_CAP", "16384"))
@@ -130,6 +140,10 @@ class DeviceIndex:
         self._alive_cached = np.zeros(0, dtype=np.bool_)
         self._removed_since_base = 0
         self.postings_pack = None
+        # Slot / ltf columns of the pack for the blockdense executor,
+        # derived on first use (postings_slot / postings_ltf).
+        self._slot_dev = None
+        self._ltf_dev = None
         self.doc_len = None
         self.alive_mask = None
         self._alive_all = True
@@ -145,6 +159,15 @@ class DeviceIndex:
         self._guard_len = 0
         self._adl_dev = None
         self._adl_dev_val = None
+        # Per-term block-bounds cache of the blockdense executor: rows
+        # depend only on the base snapshot and the term, so the binary
+        # search runs only on misses.  Row 0 stays all-zero (padding,
+        # dense-handled and delta-born terms).  The LRU mutates under
+        # concurrent readers, hence the lock.
+        self._bounds_lock = threading.Lock()
+        self._bounds_cache = None       # device int32[C, G+1]
+        self._bounds_map = None         # OrderedDict term_id -> row
+        self._bounds_next = 1
 
     # -- live aggregates (host-authoritative; search syncs first) ------
 
@@ -162,6 +185,42 @@ class DeviceIndex:
 
     def term_live_df(self, term_id: int) -> int:
         return int(self.host.term_df.a[term_id - 1])
+
+    @property
+    def postings_slot(self) -> torch.Tensor:
+        """int32[P_pad] slot column, derived from the pack on first use
+        (slots ride in the pack as f32, exact below 2**24, which the
+        routers gate on)."""
+        if self._slot_dev is None and self.postings_pack is not None:
+            self._slot_dev = self.postings_pack[: self.n_postings, 0].to(
+                torch.int32).contiguous()
+        return self._slot_dev
+
+    @property
+    def postings_ltf(self) -> torch.Tensor:
+        """float32[P_pad] ltf column, derived from the pack on first use."""
+        if self._ltf_dev is None and self.postings_pack is not None:
+            self._ltf_dev = self.postings_pack[: self.n_postings, 1] \
+                .contiguous()
+        return self._ltf_dev
+
+    def drop_legacy_cols(self) -> None:
+        """Release the derived slot / ltf columns of a large snapshot
+        (above 2**26 postings) after a batch used them: the next
+        blockdense batch derives them again, so the second postings
+        copy beside the pack is transient.  Queued work keeps its
+        memory: the caching allocator reuses it only for work ordered
+        after it on the stream."""
+        if self.postings_pack is not None and self.n_postings > (1 << 26):
+            self._slot_dev = None
+            self._ltf_dev = None
+
+    def _reset_derived(self) -> None:
+        """Drop what derives from the base CSR (on every rebuild)."""
+        self._slot_dev = None
+        self._ltf_dev = None
+        self._bounds_cache = None
+        self._bounds_map = None
 
     @property
     def slice_t_cap(self) -> int:
@@ -452,6 +511,7 @@ class DeviceIndex:
         self._arrival_mark = self.host.p_term.n
         self._slots_mark = self.host.doc_ids.n
         self._removed_since_base = 0
+        self._reset_derived()
         self.generation = generation
         _log.debug("rebuild: total %.1fs (%d dense rows)",
                    time.monotonic() - t_phase, len(heavy))
@@ -490,10 +550,12 @@ class DeviceIndex:
 
         Device arrays: ``postings_pack`` f32[rows, 3], ``doc_len``
         f32[S_pad], ``alive_mask`` u32/int32[S_pad/32], ``dense_rows``
-        f32[H, S_pad].  Host metadata: ``term_starts``, ``slot_perm``,
-        ``dense_row_lookup``, ``prefix_start_lookup`` (optionally
-        ``prefix_tail`` / ``prefix_len``), and the ints ``n_postings``
-        and ``slice_t_cap``."""
+        f32[H, S_pad], and optionally the blockdense bounds cache
+        ``bounds_cache`` int32[C, G+1] with its LRU ``bounds_map``
+        (term id -> row, oldest first).  Host metadata: ``term_starts``,
+        ``slot_perm``, ``dense_row_lookup``, ``prefix_start_lookup``
+        (optionally ``prefix_tail`` / ``prefix_len``), and the ints
+        ``n_postings`` and ``slice_t_cap``."""
         self = cls(host, device)
         put = self._put
         self.postings_pack = put(np.asarray(arrays["postings_pack"],
@@ -527,8 +589,81 @@ class DeviceIndex:
         self._alive_all = bool(self._alive_cached.all())
         self._arrival_mark = host.p_term.n
         self._slots_mark = n_host
+        if "bounds_cache" in arrays:
+            cache = np.asarray(arrays["bounds_cache"], dtype=np.int32)
+            self._bounds_cache = put(cache)
+            self._bounds_map = OrderedDict(
+                (int(t), int(r)) for t, r in arrays["bounds_map"].items())
+            self._bounds_next = max(self._bounds_map.values(), default=0) + 1
         self.generation = host.generation
         return self
+
+    # -- per-term bounds cache ---------------------------------------------
+
+    def bounds_crows(self, term_ids) -> dict[int, int]:
+        """Cache rows of the given base terms' block bounds; missing
+        rows are computed in one csr_block_bounds call and written into
+        the cache.  Terms without base postings map to row 0.
+        Thread-safe."""
+        with self._bounds_lock:
+            return self._bounds_crows_locked(term_ids)
+
+    def _bounds_crows_locked(self, term_ids) -> dict[int, int]:
+        from ..ops.executor import csr_block_bounds
+        from ..ops.kernels import BLOCK_SLOTS
+
+        n_blocks = self.n_slots // BLOCK_SLOTS
+        if self._bounds_map is None:
+            self._bounds_map = OrderedDict()
+        if self._bounds_cache is None:
+            self._bounds_cache = torch.zeros(
+                (self.BOUNDS_CACHE_ROWS, n_blocks + 1), dtype=torch.int32,
+                device=self.device)
+            self._bounds_next = 1
+        out: dict[int, int] = {}
+        missing: list[int] = []
+        for t in term_ids:
+            row = self._bounds_map.get(t)
+            if row is not None:
+                self._bounds_map.move_to_end(t)
+                out[t] = row
+            elif self.term_range(t)[1] > 0:
+                if t not in out:
+                    missing.append(t)
+                    out[t] = -1         # assigned below
+            else:
+                out[t] = 0
+        if not missing:
+            return out
+
+        rows = []
+        pinned = set()
+        for t in missing:
+            if self._bounds_next < self.BOUNDS_CACHE_ROWS:
+                row = self._bounds_next
+                self._bounds_next += 1
+            else:
+                # LRU-evict a row not assigned by this very call.
+                for old_t, old_row in self._bounds_map.items():
+                    if old_row not in pinned:
+                        del self._bounds_map[old_t]
+                        row = old_row
+                        break
+                else:
+                    raise RuntimeError("bounds cache exhausted")
+            pinned.add(row)
+            self._bounds_map[t] = row
+            out[t] = row
+            rows.append(row)
+
+        ranges = np.asarray([self.term_range(t) for t in missing],
+                            dtype=np.int32).reshape(-1, 2)
+        ranges_d = self._put(ranges)
+        new_rows = csr_block_bounds(self.postings_slot, ranges_d[:, 0],
+                                    ranges_d[:, 1], n_blocks=n_blocks)
+        self._bounds_cache[self._put(np.asarray(rows, dtype=np.int64))] = \
+            new_rows
+        return out
 
     # -- query-side metadata ----------------------------------------------
 

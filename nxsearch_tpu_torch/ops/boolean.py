@@ -1,15 +1,19 @@
-"""Boolean query algebra: the host half (postfix program compiler).
+"""Boolean query algebra: the postfix program compiler (host) and its
+presence-bits interpreter (torch).
 
 The planner lowers a query AST to a fixed-width postfix program
-(``compile_program``) whose device interpreters live in
-nxsearch_tpu/ops/boolean.py; this port serves pure-OR queries only, so
-the device evaluators are not carried yet.  Opcodes, limits and the
-compiler are identical to the reference package.
+(``compile_program``); ``eval_program_bits`` interprets it over
+per-document presence bits on the device, the evaluator of the sliced
+and blockdense executors.  Opcodes, limits and the compiler are
+identical to nxsearch_tpu/ops/boolean.py.  The packed-bitmap
+evaluators there (``build_term_masks`` / ``eval_program``) serve only
+the candidate / dense executors, which this port does not carry yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..errors import ErrorCode, NxsError
 from ..query.ast import (EXPR_OP_AND, EXPR_OP_NOT, EXPR_OP_OR,
@@ -91,3 +95,43 @@ def check_nesting(root: Expr) -> None:
 # Sentinel PUSH argument for an unresolved (empty-set) leaf in the
 # presence-bits evaluator: any value >= 32 pushes constant False.
 EMPTY_LEAF_BIT = 32
+
+
+def eval_program_bits(present_bits: torch.Tensor, ops: torch.Tensor,
+                      args: torch.Tensor, *, depth: int = 8
+                      ) -> torch.Tensor:
+    """Interpret each row's postfix program over its presence bits.
+
+    present_bits: int64[N, B] holding u32 words (bit q: query term q
+    occurs in the candidate; int64 so bit 31 is not a sign bit);
+    ops/args: int[N, L] NOP-padded, one program per row; ``depth`` is
+    the static stack bucket (>= every program's simulated depth).
+    Returns bool[N, B]: which candidates survive their row's program.
+    The batched form of nxsearch_tpu's ``eval_program_bits`` (vmapped
+    there): every row steps through its own program in lockstep.
+    """
+    n, b = present_bits.shape
+    dev = present_bits.device
+    ops = ops.to(device=dev, dtype=torch.int64)
+    args = args.to(device=dev, dtype=torch.int64)
+    stack = torch.zeros((n, depth, b), dtype=torch.bool, device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    rows = torch.arange(n, device=dev)
+    for step in range(ops.shape[1]):
+        op = ops[:, step]
+        arg = args[:, step]
+        push = op == OP_PUSH
+        binary = op >= OP_AND
+        leaf = (((present_bits >> arg.clamp(0, 31)[:, None]) & 1) != 0) \
+            & (arg < EMPTY_LEAF_BIT)[:, None]
+        a = stack[rows, (sp - 2).clamp(0, depth - 1)]
+        c = stack[rows, (sp - 1).clamp(0, depth - 1)]
+        val = torch.where(
+            push[:, None], leaf,
+            torch.where((op == OP_AND)[:, None], a & c,
+                        torch.where((op == OP_OR)[:, None], a | c, a & ~c)))
+        pos = torch.where(push, sp, sp - 2).clamp(0, depth - 1)
+        write = (push | binary)[:, None]
+        stack[rows, pos] = torch.where(write, val, stack[rows, pos])
+        sp = sp + push.to(torch.int64) - binary.to(torch.int64)
+    return stack[:, 0]

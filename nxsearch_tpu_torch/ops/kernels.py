@@ -200,3 +200,115 @@ def myers_distances(vocab_bytes: torch.Tensor, vocab_len: torch.Tensor,
                          q_bytes.data_ptr(), q_len.data_ptr(),
                          out.data_ptr(), n_t, n_q)
     return out
+
+
+# csrc/segsum.cu: replaces nxsearch_tpu/ops/pallas/segsum.py _make_kernel
+# (block-dense per-slot scores and presence bits).
+SEGSUM = CudaKernel("segsum.cu", "nxs_segsum_blockdense",
+                    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+
+BLOCK_SLOTS = 1024      # slots per kernel block (R of the reference)
+MAX_KERNEL_TERMS = 8    # wider queries run the kernel per 8-term group
+
+
+def blockdense_scores_ref(postings_slot: torch.Tensor,  # int32[P]
+                          postings_ltf: torch.Tensor,   # f32[P]
+                          doc_len: torch.Tensor,        # f32[S]
+                          alive_f: torch.Tensor,        # f32[S] 0/1
+                          bounds: torch.Tensor,         # int32[N, Q, G+1]
+                          coef: torch.Tensor,           # f32[N, Q, 4]
+                          *, algo: int, use_mask: bool
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(scores f32[N, S], bits int32[N, S] holding u32 words): the
+    plain twin of the segsum kernel.
+
+    Term by term, every posting of the term's range that lies in the
+    block its bounds row assigns it to is added at its slot; one
+    posting per (term, slot) makes each term's accumulate a plain add,
+    so the per-slot summation order is the kernel's and the
+    reference's.  Bounds rows must be non-decreasing (csr_block_bounds
+    rows and the all-zero row are)."""
+    dev = postings_slot.device
+    n_batch, n_terms, n_edges = bounds.shape
+    n_slots = doc_len.shape[0]
+    acc = torch.zeros((n_batch, n_slots), dtype=torch.float32, device=dev)
+    bits = torch.zeros((n_batch, n_slots), dtype=torch.int32, device=dev)
+    b = bounds.to(torch.int64)
+    for q in range(n_terms):
+        lo, hi = b[:, q, 0], b[:, q, -1]
+        cnt = (hi - lo).clamp(min=0)
+        total = int(cnt.sum())
+        if total == 0:
+            continue
+        row = torch.repeat_interleave(
+            torch.arange(n_batch, device=dev), cnt)
+        first = torch.cumsum(cnt, 0) - cnt
+        j = lo[row] + torch.arange(total, device=dev) - first[row]
+        slot = postings_slot[j].to(torch.int64)
+        blk = (slot // BLOCK_SLOTS).clamp(0, n_edges - 2)
+        ok = ((slot >= 0) & (slot < n_slots)
+              & (b[row, q, blk] <= j) & (j < b[row, q, blk + 1]))
+        row, slot, ltf = row[ok], slot[ok], postings_ltf[j[ok]]
+        idf = coef[row, q, 0]
+        if algo == 0:       # BM25
+            c = (ltf * idf) / ((ltf + coef[row, q, 1])
+                               + coef[row, q, 2] * doc_len[slot])
+        else:               # TF-IDF
+            c = ltf * idf
+        acc.index_put_((row, slot), c, accumulate=True)
+        if use_mask:
+            # u32 bit min(q, 31) as an int32 word (bit 31 is the sign).
+            bit = 1 << min(q, 31)
+            bits[row, slot] = bits[row, slot] | (
+                bit - (1 << 32) if bit >= 1 << 31 else bit)
+    return acc * alive_f[None, :], bits
+
+
+def blockdense_scores(postings_slot: torch.Tensor, postings_ltf: torch.Tensor,
+                      doc_len: torch.Tensor, alive_f: torch.Tensor,
+                      bounds: torch.Tensor, coef: torch.Tensor,
+                      *, algo: int, use_mask: bool
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-slot scores f32[N, S] and presence bits int32[N, S] (u32
+    words) of N queries' term groups: the segsum kernel for CUDA
+    tensors, the plain twin for CPU tensors; any other device raises.
+    Inputs as blockdense_scores_ref; S is a multiple of BLOCK_SLOTS."""
+    dev = postings_slot.device
+    if dev.type == "cpu":
+        return blockdense_scores_ref(postings_slot, postings_ltf, doc_len,
+                                     alive_f, bounds, coef, algo=algo,
+                                     use_mask=use_mask)
+    if dev.type != "cuda":
+        raise RuntimeError(f"blockdense_scores: no kernel for device {dev}")
+    n_post, n_slots = postings_slot.shape[0], doc_len.shape[0]
+    n_batch, n_terms = bounds.shape[0], bounds.shape[1]
+    if n_slots % BLOCK_SLOTS:
+        raise ValueError(f"blockdense_scores: {n_slots} slots is not a "
+                         f"multiple of {BLOCK_SLOTS}")
+    n_blocks = n_slots // BLOCK_SLOTS
+    for name, t, dtype, shape in (
+            ("postings_slot", postings_slot, torch.int32, (n_post,)),
+            ("postings_ltf", postings_ltf, torch.float32, (n_post,)),
+            ("doc_len", doc_len, torch.float32, (n_slots,)),
+            ("alive_f", alive_f, torch.float32, (n_slots,)),
+            ("bounds", bounds, torch.int32, (n_batch, n_terms, n_blocks + 1)),
+            ("coef", coef, torch.float32, (n_batch, n_terms, 4))):
+        if (t.device != dev or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"blockdense_scores: {name} must be a contiguous {dtype} "
+                f"tensor of shape {shape} on {dev}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    if alive_f.data_ptr() % 16:
+        raise ValueError("blockdense_scores: alive_f must be 16-byte "
+                         "aligned")
+    scores = torch.empty((n_batch, n_slots), dtype=torch.float32, device=dev)
+    bits = torch.empty((n_batch, n_slots), dtype=torch.int32, device=dev)
+    if n_batch:
+        with torch.cuda.device(dev):
+            SEGSUM.launch(postings_slot.data_ptr(), postings_ltf.data_ptr(),
+                          doc_len.data_ptr(), alive_f.data_ptr(),
+                          bounds.data_ptr(), coef.data_ptr(),
+                          scores.data_ptr(), bits.data_ptr(), n_batch,
+                          n_terms, n_blocks, int(algo), int(use_mask))
+    return scores, bits

@@ -4,11 +4,14 @@ Port of nxsearch_tpu/search.py.  The host half of nxs_index_search
 (src/query/search.c:285-342) -- parameter handling, journal sync,
 query preparation, the numpy planner and response assembly -- is
 carried over unchanged, so both packages build field-for-field equal
-plans.  The device half dispatches the two executors this port
-carries (ops/executor.py): the impact-prefix complete-plane path
-("pf", R = 0) and the sliced path ("sl": single, windowed, dense-row
-hybrid, head merge).  A plan that routes anywhere else raises
-NotImplementedError naming the route; nothing is silently rerouted.
+plans.  The device half dispatches the executors this port carries
+(ops/executor.py): the impact-prefix complete-plane path ("pf",
+R = 0), the sliced path ("sl": single, windowed, dense-row hybrid,
+head merge, masked, masked dense-row hybrid) and the blockdense path
+("bd": the segsum kernel over every slot).  A plan that routes to the
+candidate / dense executors (masked queries of more than 32 terms,
+2**24 slots or more) raises NotImplementedError naming the route;
+nothing is silently rerouted.
 
 Device work is asynchronous on CUDA: a batch's groups are enqueued
 back to back, their packed results are concatenated on the device and
@@ -53,13 +56,27 @@ _PURE_OR_ROOT = Expr.leaf("<batched-pure-or>")
 _ALGO_BY_NAME = {"BM25": ALGO_BM25, "TF-IDF": ALGO_TFIDF}
 
 # Executor-path counters (observability; reset freely).  Keys:
-# prefix / prefix_exact / prefix_fallback / sliced / full / dense /
-# candidate count QUERIES routed through each path.
+# prefix / prefix_exact / sliced / sliced_head / blockdense count
+# QUERIES routed through each path, sliced_masked / sliced_masked_rows
+# the masked sliced rows and those of them on the masked dense-row
+# hybrid; coalesced / coalesced_pf count rows merged into widened
+# groups.
 EXEC_STATS: dict[str, int] = {}
 
 
 def _count(key: str, n: int = 1) -> None:
     EXEC_STATS[key] = EXEC_STATS.get(key, 0) + n
+
+
+def _count_sliced(n: int, t_head: int, use_mask: bool,
+                  use_rows: bool) -> None:
+    _count("sliced", n)
+    if t_head:
+        _count("sliced_head", n)
+    if use_mask:
+        _count("sliced_masked", n)
+        if use_rows:
+            _count("sliced_masked_rows", n)
 
 
 _MAX_DENSE_PER_QUERY = 4
@@ -1270,12 +1287,40 @@ def _to_response(dev, scores, slots, limit: int, delta=None) -> Response:
     return Response(results)
 
 
+def _use_blockdense(plan: _Plan, sharded: bool, n_slots: int) -> bool:
+    """The blockdense executor (segsum kernel) takes every plan the
+    prefix and sliced executors refuse, on every device: boolean
+    queries need presence bits to fit u32, and its packed result
+    carries slots in f32, exact only below 2**24 slots.  (The
+    reference also requires an accelerator, because interpret-mode
+    Pallas is too slow on a CPU; the port's CPU path is the kernel's
+    plain twin.)"""
+    return (not sharded
+            and n_slots < (1 << 24)
+            and (not plan.use_mask or plan.q_start.shape[-1] <= 32))
+
+
+def _kernel_crows(dev, plan: _Plan,
+                  crow_map: Optional[dict] = None) -> np.ndarray:
+    """Bounds-cache rows for the plan's kernel terms (dense-handled
+    and delta-born terms map to the zero row)."""
+    dense_pos = {int(x) for x in plan.d_qpos if x >= 0} \
+        if plan.d_qpos is not None else set()
+    if crow_map is None:
+        tids = [int(t) for i, t in enumerate(plan.term_ids)
+                if i not in dense_pos]
+        crow_map = dev.bounds_crows(tids)
+    q_crow = np.zeros(plan.q_start.shape[-1], dtype=np.int32)
+    for i, t in enumerate(plan.term_ids):
+        if i not in dense_pos:
+            q_crow[i] = crow_map.get(int(t), 0)
+    return q_crow
+
+
 def _route_error(plan: _Plan) -> str:
-    route = ("masked sliced" if plan.use_mask else
-             "dense" if plan.use_dense else "blockdense/candidate")
-    return (f"query routes to the {route} executor, which is not ported "
-            "(only the impact-prefix R = 0 'pf' and pure-OR sliced "
-            "'sl' executors are)")
+    return ("query routes to the candidate/dense executor (a masked "
+            "query of more than 32 terms, or 2**24 slots or more), which "
+            "is not ported")
 
 
 def _upload(dev, buf: np.ndarray) -> torch.Tensor:
@@ -1302,24 +1347,75 @@ def _dispatch_sliced_single(dev, plan: _Plan, sp: SearchParams, k: int):
     """Dispatch ONE query's sliced-executor call; returns the packed
     device result f32[1, 2, k']."""
     from .ops.executor import pack_sliced_group, sliced_topk_packed
+    use_mask = plan.use_mask
     t_head = plan.h_T
     use_rows = plan.use_rows
+    masked_rows = use_mask and use_rows
     buf = pack_sliced_group(
         plan.sl_start[None], plan.sl_len[None], plan.sl_idf[None],
+        plan.prog_ops[None] if use_mask else None,
+        plan.prog_args[None] if use_mask else None,
         plan.d_row[None] if use_rows else None,
         plan.d_idf[None] if use_rows else None,
         np.asarray([plan.h_start], np.int32) if t_head else None,
         np.asarray([plan.h_len], np.int32) if t_head else None,
         np.asarray([plan.h_idf], np.float32) if t_head else None,
         np.asarray([plan.h_row], np.int32) if t_head else None,
-        np.asarray([plan.h_pass], np.bool_) if t_head else None)
+        np.asarray([plan.h_pass], np.bool_) if t_head else None,
+        plan.sl_rows[None] if (use_mask and plan.n_run) else None,
+        plan.d_qpos[None] if masked_rows else None,
+        plan.d_pass[None] if masked_rows else None)
     return sliced_topk_packed(
         dev.postings_pack, dev.alive_mask, dev.doc_len, _upload(dev, buf),
         dev.adl_dev, dev.dense_rows if use_rows else None,
-        qs=len(plan.sl_start), D=_MAX_DENSE_PER_QUERY, T=plan.sl_T, k=k,
-        algo=sp.algo, n_slots=dev.n_slots, use_mask=plan.use_mask,
-        single=plan.single, alive_all=dev.alive_all, use_rows=use_rows,
+        qs=len(plan.sl_start), L=len(plan.prog_ops),
+        D=_MAX_DENSE_PER_QUERY, T=plan.sl_T, k=k, algo=sp.algo,
+        n_slots=dev.n_slots, use_mask=use_mask, single=plan.single,
+        alive_all=dev.alive_all, use_rows=use_rows, depth=plan.depth,
         T_head=t_head, n_run=plan.n_run)
+
+
+def _dispatch_blockdense(dev, plans: list, sp: SearchParams, k: int,
+                         n_pad: int):
+    """Dispatch one blockdense group (plans of one ("bd", ...)
+    signature, rows padded to ``n_pad``); returns the packed device
+    result f32[n_pad, 2, k']."""
+    from .ops.executor import blockdense_core
+    sample = plans[0]
+    q_pad = sample.q_start.shape[-1]
+    prog_len = len(sample.prog_ops)
+    q_idf = np.zeros((n_pad, q_pad), dtype=np.float32)
+    prog_ops = np.zeros((n_pad, prog_len), dtype=np.int32)
+    prog_args = np.zeros((n_pad, prog_len), dtype=np.int32)
+    d_qpos = np.full((n_pad, _MAX_DENSE_PER_QUERY), -1, dtype=np.int32)
+    d_row = np.full((n_pad, _MAX_DENSE_PER_QUERY), -1, dtype=np.int32)
+    all_tids = []
+    for p in plans:
+        dense_pos = {int(x) for x in p.d_qpos if x >= 0} \
+            if p.d_qpos is not None else set()
+        all_tids.extend(int(t) for j, t in enumerate(p.term_ids)
+                        if j not in dense_pos)
+    crow_map = dev.bounds_crows(all_tids)
+    q_crow = np.zeros((n_pad, q_pad), dtype=np.int32)
+    for row, p in enumerate(plans):
+        q_idf[row] = p.q_idf
+        prog_ops[row] = p.prog_ops
+        prog_args[row] = p.prog_args
+        if p.d_qpos is not None:
+            d_qpos[row] = p.d_qpos
+            d_row[row] = p.d_row
+        q_crow[row] = _kernel_crows(dev, p, crow_map)
+
+    def put(a):
+        return torch.from_numpy(a).to(dev.device)
+
+    return blockdense_core(
+        dev.postings_slot, dev.postings_ltf, dev.doc_len, dev.alive_mask,
+        dev._bounds_cache, put(q_crow), put(q_idf), dev.adl_dev,
+        put(prog_ops), put(prog_args), dev.dense_rows, put(d_qpos),
+        put(d_row), k=k, algo=sp.algo, n_slots=dev.n_slots,
+        use_mask=sample.use_mask, depth=sample.depth,
+        use_rows=sample.use_rows)
 
 
 def execute_query(dev, query: Query, sp: SearchParams) -> Response:
@@ -1343,9 +1439,15 @@ def execute_query(dev, query: Query, sp: SearchParams) -> Response:
     if _use_sliced(plan, False, dev):
         packed = _dispatch_sliced_single(dev, plan, sp, k)
         scores, slots = unpack_sliced(packed.cpu().numpy())
-        _count("sliced")
-        if plan.h_T:
-            _count("sliced_head")
+        _count_sliced(1, plan.h_T, plan.use_mask, plan.use_rows)
+        return _to_response(dev, scores[0], slots[0], sp.limit,
+                            delta=_delta_results(dev, plan, sp))
+    if _use_blockdense(plan, False, dev.n_slots):
+        from .ops.executor import unpack_blockdense
+        packed = _dispatch_blockdense(dev, [plan], sp, k, 1)
+        dev.drop_legacy_cols()
+        scores, slots = unpack_blockdense(packed.cpu().numpy())
+        _count("blockdense")
         return _to_response(dev, scores[0], slots[0], sp.limit,
                             delta=_delta_results(dev, plan, sp))
     raise NotImplementedError(_route_error(plan))
@@ -1526,15 +1628,17 @@ def submit_query_batch(dev, queries: list[Query],
 
 
 # Per-dispatch plane caps (lanes): narrow planes 2**26, wide planes
-# (qs > 64) 2**24, and dense-row hybrids bound their [N, S_pad] sweep.
+# (qs > 64) 2**24; dense-row hybrids and blockdense groups bound their
+# [N, S_pad] planes (scores, presence bits, the program's stack) by the
+# reference's blockdense cap.
 _ELEMS_CAP = 1 << 26
 _WIDE_ELEMS_CAP = 1 << 24
-_ROWS_ELEMS_CAP = 1 << 26
+_BD_ELEMS_CAP = 1 << 26
 
 
 def _submit_plans(dev, plans: list, queries: list[Query],
                   sp: SearchParams) -> _PendingBatch:
-    """Group and dispatch already-built plans (pf and sl routes)."""
+    """Group and dispatch already-built plans (pf, sl and bd routes)."""
     from .ops.executor import pack_sliced_group, sliced_topk_packed
 
     responses: list[Optional[Response]] = [
@@ -1557,6 +1661,10 @@ def _submit_plans(dev, plans: list, queries: list[Query],
                    len(plan.prog_ops) if plan.use_mask else 0,
                    plan.use_mask, plan.depth, plan.single, plan.use_rows,
                    plan.h_T, n_run_k)
+        elif _use_blockdense(plan, False, dev.n_slots):
+            # The block kernel's signature has no postings budget.
+            key = ("bd", plan.q_start.shape[-1], len(plan.prog_ops),
+                   plan.use_mask, plan.depth, plan.use_rows)
         else:
             raise NotImplementedError(_route_error(plan))
         groups.setdefault(key, []).append(i)
@@ -1567,14 +1675,17 @@ def _submit_plans(dev, plans: list, queries: list[Query],
     # Chunk groups so one dispatch's plane stays bounded in device
     # memory (same caps as the reference).
     chunked: list[tuple[tuple, list[int]]] = []
+    bd_max_n = max(1, _BD_ELEMS_CAP // max(dev.n_slots, 1))
     for key, members in groups.items():
-        elems = max(key[1] * key[2] + (key[8] if key[0] == "sl" else 0),
-                    1)
-        cap_l = _WIDE_ELEMS_CAP if key[1] > 64 else _ELEMS_CAP
-        max_n = max(1, cap_l // elems)
-        if key[0] == "sl" and key[7]:              # use_rows
-            max_n = min(max_n, max(1, _ROWS_ELEMS_CAP
-                                   // max(dev.n_slots, 1)))
+        if key[0] == "bd":
+            max_n = bd_max_n
+        else:
+            elems = max(key[1] * key[2]
+                        + (key[8] if key[0] == "sl" else 0), 1)
+            cap_l = _WIDE_ELEMS_CAP if key[1] > 64 else _ELEMS_CAP
+            max_n = max(1, cap_l // elems)
+            if key[0] == "sl" and key[7]:          # use_rows
+                max_n = min(max_n, bd_max_n)
         for at in range(0, len(members), max_n):
             chunked.append((key, members[at: at + max_n]))
 
@@ -1611,19 +1722,37 @@ def _submit_plans(dev, plans: list, queries: list[Query],
             _count("prefix", n)
             pending.append((members, packed, "prefix"))
             continue
+        if key[0] == "bd":
+            packed = _dispatch_blockdense(
+                dev, [plans[i] for i in members], sp, k, _row_pad(n))
+            _count("blockdense", n)
+            pending.append((members, packed, "bd"))
+            continue
         # Group params come from the KEY: coalesced groups carry
         # widened maxima there, and member rows re-pad below.
-        (_, qs_pad, T_g, _L, use_mask_g, _depth, single_g, use_rows_g,
+        (_, qs_pad, T_g, L_key, use_mask_g, depth_g, single_g, use_rows_g,
          t_head, n_run_g) = key
+        prog_len = L_key or 1
         n_pad = _row_pad(n, qs_pad, T_g)
         sl_start = np.zeros((n_pad, qs_pad), dtype=np.int32)
         sl_len = np.zeros((n_pad, qs_pad), dtype=np.int32)
         sl_idf = np.zeros((n_pad, qs_pad), dtype=np.float32)
+        sl_rows = np.zeros((n_pad, qs_pad), dtype=np.int32) \
+            if (n_run_g and use_mask_g) else None
+        if use_mask_g:
+            prog_ops = np.zeros((n_pad, prog_len), dtype=np.int32)
+            prog_args = np.zeros((n_pad, prog_len), dtype=np.int32)
         if use_rows_g:
             d_row = np.full((n_pad, _MAX_DENSE_PER_QUERY), -1,
                             dtype=np.int32)
             d_idf = np.zeros((n_pad, _MAX_DENSE_PER_QUERY),
                              dtype=np.float32)
+        masked_rows = bool(use_mask_g and use_rows_g)
+        if masked_rows:
+            d_bit = np.full((n_pad, _MAX_DENSE_PER_QUERY), -1,
+                            dtype=np.int32)
+            d_pass = np.zeros((n_pad, 1 << _MAX_DENSE_PER_QUERY),
+                              dtype=np.bool_)
         if t_head:
             h_start = np.zeros(n_pad, dtype=np.int32)
             h_len = np.zeros(n_pad, dtype=np.int32)
@@ -1636,9 +1765,19 @@ def _submit_plans(dev, plans: list, queries: list[Query],
             sl_start[row, :w] = p.sl_start
             sl_len[row, :w] = p.sl_len
             sl_idf[row, :w] = p.sl_idf
+            if sl_rows is not None:
+                sl_rows[row, :w] = p.sl_rows
+            if use_mask_g:
+                lp = len(p.prog_ops)
+                prog_ops[row, :lp] = p.prog_ops
+                prog_args[row, :lp] = p.prog_args
             if use_rows_g and p.d_row is not None:
                 d_row[row] = p.d_row
                 d_idf[row] = p.d_idf
+            if masked_rows:
+                d_bit[row] = p.d_qpos
+                if p.d_pass is not None:
+                    d_pass[row] = p.d_pass
             if t_head and p.h_T:
                 h_start[row] = p.h_start
                 h_len[row] = p.h_len
@@ -1647,24 +1786,30 @@ def _submit_plans(dev, plans: list, queries: list[Query],
                 h_pass[row] = p.h_pass
         buf = pack_sliced_group(
             sl_start, sl_len, sl_idf,
+            prog_ops if use_mask_g else None,
+            prog_args if use_mask_g else None,
             d_row if use_rows_g else None,
             d_idf if use_rows_g else None,
             h_start if t_head else None, h_len if t_head else None,
             h_idf if t_head else None, h_row if t_head else None,
-            h_pass if t_head else None)
+            h_pass if t_head else None, sl_rows,
+            d_bit if masked_rows else None,
+            d_pass if masked_rows else None)
         packed = sliced_topk_packed(
             dev.postings_pack, dev.alive_mask, dev.doc_len,
             _upload(dev, buf), dev.adl_dev,
             dev.dense_rows if use_rows_g else None,
-            qs=qs_pad, D=_MAX_DENSE_PER_QUERY, T=T_g, k=k, algo=sp.algo,
-            n_slots=dev.n_slots, use_mask=use_mask_g, single=single_g,
-            alive_all=dev.alive_all, use_rows=use_rows_g,
-            T_head=t_head, n_run=n_run_g)
-        _count("sliced", n)
-        if t_head:
-            _count("sliced_head", n)
+            qs=qs_pad, L=prog_len, D=_MAX_DENSE_PER_QUERY, T=T_g, k=k,
+            algo=sp.algo, n_slots=dev.n_slots, use_mask=use_mask_g,
+            single=single_g, alive_all=dev.alive_all,
+            use_rows=use_rows_g, depth=depth_g, T_head=t_head,
+            n_run=n_run_g)
+        _count_sliced(n, t_head, use_mask_g, use_rows_g)
         pending.append((members, packed, "sliced"))
 
+    if any(tag == "bd" for _m, _p, tag in pending):
+        # A blockdense group read the derived slot / ltf columns.
+        dev.drop_legacy_cols()
     fetch = _fetch_start([p[1] for p in pending]) if pending else None
     return _PendingBatch(plans=plans, responses=responses,
                          pending=pending, fetch=fetch,
@@ -1719,7 +1864,7 @@ def collect_query_batch(dev, st: _PendingBatch,
             scores, slots, exact = unpack_prefix(arr)
             # R = 0 planes are complete: exact by construction.
             _count("prefix_exact", int(exact[:n].sum()))
-        else:
+        else:               # sliced and blockdense: one [N, 2, k] layout
             scores, slots = unpack_sliced(arr)
         _to_responses_group(dev, members, scores[:n], slots[:n],
                             st.plans, sp, st.responses)

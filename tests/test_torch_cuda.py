@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from nxsearch_tpu_torch.ops import kernels
+from nxsearch_tpu_torch.ops import executor, kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -120,6 +120,148 @@ def test_port_on_card_matches_port_on_cpu(tmp_path):
     got = idx_g.search_many(queries, Params().set_uint("limit", 10))
     want = idx_c.search_many(queries, Params().set_uint("limit", 11))
     assert kernels.MYERS.launches > before
+    for q, w, g in zip(queries, want, got):
+        _assert_same(w, g, q)
+    gpu.close()
+    cpu.close()
+
+
+def _segsum_inputs(seed, n_queries, n_terms, n_slots):
+    """Random slot-sorted CSR postings (some terms empty), the bounds
+    rows of n_queries x n_terms query terms (about one in six the
+    all-zero row of padding / dense-handled terms) and BM25 coef."""
+    rng = np.random.default_rng(seed)
+    n_csr = 2 * n_terms
+    lens = rng.integers(0, n_slots // 3, n_csr)
+    lens[:2] = 0
+    lens[-1] = n_slots // 4             # every query's first term
+    slot = [np.sort(rng.choice(n_slots, size=int(n), replace=False))
+            for n in lens]
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int32)
+    total = int(lens.sum())
+    p_pad = -(-(total + 1) // 1024) * 1024
+    ps = np.zeros(p_pad, np.int32)
+    pf = np.zeros(p_pad, np.float32)
+    ps[:total] = np.concatenate(slot)
+    pf[:total] = np.log(rng.integers(1, 9, total) + 1.0)
+    dl = rng.integers(3, 90, n_slots).astype(np.float32)
+    alive = (rng.random(n_slots) > 0.05).astype(np.float32)
+    n_blocks = n_slots // kernels.BLOCK_SLOTS
+    bounds_all = executor.csr_block_bounds(
+        torch.from_numpy(ps), torch.from_numpy(starts),
+        torch.from_numpy(lens.astype(np.int32)), n_blocks=n_blocks).numpy()
+    pick = rng.integers(-1, n_csr, (n_queries, n_terms))
+    pick[rng.random(pick.shape) < 0.1] = -1
+    pick[:, 0] = n_csr - 1
+    bounds = np.where(pick[..., None] >= 0,
+                      bounds_all[np.maximum(pick, 0)], 0).astype(np.int32)
+    coef = np.zeros((n_queries, n_terms, 4), np.float32)
+    coef[..., 0] = rng.uniform(0.1, 6.0, (n_queries, n_terms))
+    coef[..., 1] = np.float32(1.2 * 0.25)
+    coef[..., 2] = np.float32(0.9) / np.float32(37.0)
+    return [torch.from_numpy(a).cuda()
+            for a in (ps, pf, dl, alive, bounds, coef)]
+
+
+@pytest.mark.parametrize("n_queries,n_terms,n_slots,algo,use_mask", [
+    (64, 8, 1 << 16, 0, True),     # a bd chunk's shape, narrower index
+    (3, 8, 4096, 1, True),         # TF-IDF
+    (5, 8, 8192, 0, False),        # no presence bits
+    (2, 32, 2048, 0, True),        # bit 31: the sign of the int32 word
+    (1, 1, 1024, 0, True),         # one term, one block
+])
+def test_segsum_kernel_matches_twin(n_queries, n_terms, n_slots, algo,
+                                    use_mask):
+    """Bit-for-bit equality of scores and presence bits, empty and
+    zeroed ranges included."""
+    _need_card()
+    args = _segsum_inputs(n_queries + n_terms, n_queries, n_terms, n_slots)
+    before = kernels.SEGSUM.launches
+    got_s, got_b = kernels.blockdense_scores(*args, algo=algo,
+                                             use_mask=use_mask)
+    want_s, want_b = kernels.blockdense_scores_ref(*args, algo=algo,
+                                                   use_mask=use_mask)
+    torch.cuda.synchronize()
+    assert kernels.SEGSUM.launches == before + 1
+    assert torch.equal(got_s, want_s)
+    assert torch.equal(got_b, want_b)
+    assert (want_s > 0).any()
+    if n_terms == 32:
+        assert (want_b < 0).any()          # bit 31 set somewhere
+
+
+def test_blockdense_two_groups_on_card_matches_cpu():
+    """A 9-term masked query runs the kernel twice (terms 0-7, then term
+    8 with its bits shifted by 8); the card's top-k equals the CPU's."""
+    _need_card()
+    ps, pf, dl, _alive, bounds, coef = _segsum_inputs(7, 4, 16, 8192)
+    alive_mask = torch.full((8192 // 32,), -1, dtype=torch.int32,
+                            device="cuda")
+    alive_mask[3] = 0x0F0F0F0F
+    bounds[:, 9:] = 0                   # 9 live terms per query
+    q_idf = coef[..., 0].contiguous()
+    # (t0 AND t8) OR (t1 AND NOT t5), NOP-padded.
+    ops = torch.tensor([[1, 1, 2, 1, 1, 4, 3, 0]] * 4, dtype=torch.int32)
+    args = torch.tensor([[0, 8, 0, 1, 5, 0, 0, 0]] * 4, dtype=torch.int32)
+    adl = torch.tensor(37.0)
+    kw = dict(k=128, algo=0, n_slots=8192, use_mask=True, depth=4)
+    before = kernels.SEGSUM.launches
+    got = executor.blockdense_topk_bounds(
+        ps, pf, dl, alive_mask, bounds, q_idf, adl.cuda(), ops.cuda(),
+        args.cuda(), **kw)
+    want = executor.blockdense_topk_bounds(
+        ps.cpu(), pf.cpu(), dl.cpu(), alive_mask.cpu(), bounds.cpu(),
+        q_idf.cpu(), adl, ops, args, **kw)
+    assert kernels.SEGSUM.launches == before + 2
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert (want[0] > 0).any()
+
+
+def test_segsum_wrapper_rejects_bad_inputs():
+    _need_card()
+    ps, pf, dl, alive, bounds, coef = _segsum_inputs(1, 2, 8, 2048)
+    with pytest.raises(ValueError, match="bounds"):
+        kernels.blockdense_scores(ps, pf, dl, alive, bounds.long(), coef,
+                                  algo=0, use_mask=True)
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        kernels.blockdense_scores(ps, pf, dl[:1000], alive[:1000], bounds,
+                                  coef, algo=0, use_mask=True)
+
+
+@pytest.mark.parametrize("hybrid", [True, False])
+def test_masked_search_on_card_matches_cpu(tmp_path, monkeypatch, hybrid):
+    """bench's mixed trace plus boolean queries over the dense-row terms,
+    on the card and on the CPU: masked sliced rows with the hybrid on,
+    the blockdense route (segsum kernel) with it off."""
+    _need_card()
+    import bench
+    from nxsearch_tpu_torch import Nxs, Params
+    from nxsearch_tpu_torch import search as psearch
+
+    monkeypatch.setattr(psearch, "_MASKED_HYBRID", hybrid)
+    vocab = 6000
+    cpu = Nxs(str(tmp_path), device="cpu")
+    idx_c = cpu.index_create("t")
+    idx_c.add_many(bench.zipf_range(0, 3000, vocab, 20))
+    gpu = Nxs(str(tmp_path), device="cuda")
+    idx_g = gpu.index_open("t")
+    words = np.array([f"w{i:05d}" for i in range(vocab)])
+    probs = 1.0 / (np.arange(vocab) + 10.0)
+    probs /= probs.sum()
+    rng = np.random.default_rng(1)
+    queries = bench.make_mixed_queries(300, words, probs, rng)
+    for i in range(24):
+        h, a, b = words[i % 10], words[40 + i], words[90 + 2 * i]
+        queries += [f"{h} AND {a}", f"{a} {b} AND NOT {h}",
+                    f"({h} OR {a}) AND {b}"]
+    psearch.EXEC_STATS.clear()
+    before = kernels.SEGSUM.launches
+    got = idx_g.search_many(queries, Params().set_uint("limit", 10))
+    if not hybrid:
+        assert kernels.SEGSUM.launches > before
+        assert psearch.EXEC_STATS.get("blockdense", 0) > 0
+    want = idx_c.search_many(queries, Params().set_uint("limit", 11))
     for q, w, g in zip(queries, want, got):
         _assert_same(w, g, q)
     gpu.close()

@@ -8,6 +8,10 @@ port with DeviceIndex.from_arrays, and the reference's own planner
 executors read the same bytes.  Covered branches: prefix R = 0,
 sliced single, windowed n_run, the dense-row hybrid use_rows and the
 head merge T_head, each with and without tombstoned documents.
+Masked (AND / NOT) plans cover the masked windowed plane (sl_rows),
+the masked dense-row hybrid (d_bit / d_pass), the masked head merge
+(h_row / h_pass) and the tiered masked plane, whose column bits shift
+past the head's row.
 Tolerance: scores within 1e-4 (the reference's own tests); slots
 identical.  The port's own snapshot build is held to the reference's
 arrays too.
@@ -52,17 +56,39 @@ def export_arrays(dev) -> dict:
     }
 
 
-def _queries():
+def _vocab():
     ranks = np.arange(VOCAB, dtype=np.float64)
     probs = 1.0 / (ranks + 10.0)
     probs /= probs.sum()
-    words = np.array([f"w{i:05d}" for i in range(VOCAB)])
+    return np.array([f"w{i:05d}" for i in range(VOCAB)]), probs
+
+
+def _queries():
+    words, probs = _vocab()
     rng = np.random.default_rng(5)
     multi = bench.make_queries(120, words, probs, rng)
     single = [str(w) for w in words[rng.choice(VOCAB, 40, p=probs)]]
     head = [str(w) for w in words[:12]]     # the heaviest terms
     return multi + single + head + [f"{a} {b}" for a, b in
                                     zip(head, single)]
+
+
+def _masked_queries():
+    """bench's mixed trace, boolean rows only, plus AND / AND NOT /
+    grouped queries over the heaviest (dense-row) terms."""
+    words, probs = _vocab()
+    rng = np.random.default_rng(6)
+    mixed = [q for q in bench.make_mixed_queries(400, words, probs, rng)
+             if " AND " in q]
+    head = [str(w) for w in words[:8]]
+    mid = [str(w) for w in words[rng.choice(VOCAB, 24, p=probs)]]
+    extra = []
+    for i, h in enumerate(head):
+        a, b, c = mid[3 * i: 3 * i + 3]
+        extra += [f"{h} AND {a}", f"{a} {b} AND NOT {h}",
+                  f"({h} OR {a}) AND {b}", f"{h} AND {head[i - 1]}",
+                  f"({a} OR {b}) AND NOT ({c} OR {h})"]
+    return mixed + extra
 
 
 @pytest.fixture(scope="module")
@@ -149,60 +175,91 @@ def _run_prefix(idx, pdev, sp):
 
 def _run_sliced(idx, pdev, sp, branch):
     jdev = idx.dev
-    plans = _build_plans(jdev, _prepare_many(
-        jdev, idx.pipeline, _queries(), sp), sp, no_prefix=True)
+    masked = branch.startswith("masked")
+    with pytest.MonkeyPatch.context() as mp:
+        if branch == "masked_tiered":
+            # No windowed plans: columns are whole terms and carry no
+            # sl_rows, so column bits shift past the head's row.
+            mp.setattr(jsearch, "_WINDOW_MAX_COLS", 0)
+        plans = _build_plans(jdev, _prepare_many(
+            jdev, idx.pipeline, _masked_queries() if masked else _queries(),
+            sp), sp, no_prefix=True)
+        plans = [p for p in plans
+                 if p is not None and p.use_mask == masked
+                 and jsearch._use_sliced(p, False, jdev)]
     pick = {
         "single": lambda p: p.single and not p.use_rows,
         "n_run": lambda p: (not p.single and not p.use_rows
                             and not p.h_T),
         "use_rows": lambda p: p.use_rows,
         "T_head": lambda p: p.h_T > 0,
+        "masked": lambda p: not p.use_rows and not p.h_T and p.n_run > 0,
+        "masked_rows": lambda p: p.use_rows,
+        "masked_head": lambda p: p.h_T > 0 and p.n_run > 0,
+        "masked_tiered": lambda p: p.h_T > 0 and p.n_run == 0,
     }[branch]
-    groups = _groups([p for p in plans if p is not None and pick(p)],
+    groups = _groups([p for p in plans if pick(p)],
                      lambda p: (p.sl_T, p.single, p.use_rows, p.h_T,
-                                p.n_run))
+                                p.n_run, len(p.prog_ops), p.depth))
     assert groups, branch
-    for (T, single, use_rows, t_head, n_run), members in groups.items():
+    for (T, single, use_rows, t_head, n_run, L, depth), members in \
+            groups.items():
         qs = max(len(p.sl_start) for p in members)
         n = len(members)
         sl = {f: np.zeros((n, qs), np.float32 if f == "sl_idf"
                           else np.int32)
-              for f in ("sl_start", "sl_len", "sl_idf")}
-        d_row = np.full((n, 4), -1, np.int32)
-        d_idf = np.zeros((n, 4), np.float32)
+              for f in ("sl_start", "sl_len", "sl_idf", "sl_rows")}
+        prog = {f: np.zeros((n, L), np.int32)
+                for f in ("prog_ops", "prog_args")}
+        d = {"d_row": np.full((n, 4), -1, np.int32),
+             "d_idf": np.zeros((n, 4), np.float32),
+             "d_qpos": np.full((n, 4), -1, np.int32),
+             "d_pass": np.zeros((n, 16), np.bool_)}
         h = {"h_start": np.zeros(n, np.int32), "h_len": np.zeros(n, np.int32),
              "h_idf": np.zeros(n, np.float32), "h_row": np.zeros(n, np.int32),
              "h_pass": np.zeros(n, np.bool_)}
         for row, p in enumerate(members):
             w = len(p.sl_start)
             for f in sl:
-                sl[f][row, :w] = getattr(p, f)
-            d_row[row], d_idf[row] = p.d_row, p.d_idf
+                if getattr(p, f) is not None:
+                    sl[f][row, :w] = getattr(p, f)
+            for f in prog:
+                prog[f][row] = getattr(p, f)
+            for f in d:
+                if getattr(p, f) is not None:
+                    d[f][row] = getattr(p, f)
             for f in h:
                 h[f][row] = getattr(p, f)
+        masked_rows = masked and use_rows
         buf = jexec.pack_sliced_group(
-            sl["sl_start"], sl["sl_len"], sl["sl_idf"], None, None,
-            d_row if use_rows else None, d_idf if use_rows else None,
-            *([h[f] for f in h] if t_head else [None] * 5))
+            sl["sl_start"], sl["sl_len"], sl["sl_idf"],
+            *([prog["prog_ops"], prog["prog_args"]] if masked
+              else [None, None]),
+            d["d_row"] if use_rows else None, d["d_idf"] if use_rows else None,
+            *([h[f] for f in h] if t_head else [None] * 5),
+            sl["sl_rows"] if masked and n_run else None,
+            d["d_qpos"] if masked_rows else None,
+            d["d_pass"] if masked_rows else None)
         want = jexec.device_search_sliced_packed(
             jdev.postings_pack, jdev.alive_mask, jdev.doc_len,
             jnp.asarray(buf), jdev.adl_dev,
             jdev.dense_rows if use_rows else None,
-            qs=qs, L=1, D=4, T=T, k=K, algo=0, n_slots=jdev.n_slots,
-            use_mask=False, single=single, alive_all=jdev.alive_all,
-            use_rows=use_rows, depth=4, T_head=t_head, n_run=n_run)
+            qs=qs, L=L, D=4, T=T, k=K, algo=0, n_slots=jdev.n_slots,
+            use_mask=masked, single=single, alive_all=jdev.alive_all,
+            use_rows=use_rows, depth=depth, T_head=t_head, n_run=n_run)
         got = pexec.sliced_topk_packed(
             pdev.postings_pack, pdev.alive_mask, pdev.doc_len,
             torch.from_numpy(buf), pdev.adl_dev,
             pdev.dense_rows if use_rows else None,
-            qs=qs, D=4, T=T, k=K, algo=0, n_slots=pdev.n_slots,
-            use_mask=False, single=single, alive_all=pdev.alive_all,
-            use_rows=use_rows, T_head=t_head, n_run=n_run)
+            qs=qs, L=L, D=4, T=T, k=K, algo=0, n_slots=pdev.n_slots,
+            use_mask=masked, single=single, alive_all=pdev.alive_all,
+            use_rows=use_rows, depth=depth, T_head=t_head, n_run=n_run)
         _check(want, got)
 
 
 SP = SearchParams(limit=10, algo=0, fuzzymatch=True)
-BRANCHES = ["single", "n_run", "use_rows", "T_head"]
+BRANCHES = ["single", "n_run", "use_rows", "T_head", "masked",
+            "masked_rows", "masked_head", "masked_tiered"]
 
 
 @pytest.fixture

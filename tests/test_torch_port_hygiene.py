@@ -118,7 +118,8 @@ PLANNER = ["get_search_params", "_bucket", "_slice_tier", "_head_tier",
            "_prefix_mode", "_row_pad", "_qs_pad", "_is_pure_or",
            "_Plan", "_build_plan_prefix", "_build_plan", "_pow2ceil",
            "_build_plans", "_plans_prefix", "_eval_program_np",
-           "_delta_results", "_use_sliced", "_to_response", "_ladder",
+           "_delta_results", "_use_sliced", "_kernel_crows",
+           "_to_response", "_ladder",
            "_coalesce_sliced_groups", "_coalesce_prefix_groups",
            "submit_query_batch", "_to_responses_group", "search",
            "_prepare_many", "search_many"]

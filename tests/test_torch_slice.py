@@ -8,6 +8,12 @@ opened by nxsearch_tpu_torch on the CPU.  Small impact-prefix
 thresholds give the little corpus wide terms, whose rows route to the
 sliced executor and its dense-row hybrid as the 1M tier's do.
 
+Boolean traffic: bench.py's mixed trace (make_mixed_queries: 25 %
+AND / AND NOT rows, 5 % typos) plus AND / AND NOT / grouped / nested
+queries over the dense-row terms, with the masked dense-row hybrid on
+(the default: masked sliced rows) and off (the port's blockdense
+executor, the reference's candidate executor on the CPU).
+
 Checks: doc ids identical in order -- an adjacent swap is allowed only
 where the reference's two scores differ by <= 1e-4, since ltf is an
 f32 log on both sides and two libraries' log may differ by an ulp --
@@ -20,6 +26,7 @@ import pytest
 
 import bench
 import nxsearch_tpu
+import nxsearch_tpu.search as jsearch
 import nxsearch_tpu_torch
 from nxsearch_tpu.index.device import DeviceIndex as JDeviceIndex
 from nxsearch_tpu_torch import search as psearch
@@ -45,6 +52,31 @@ def _queries(seed, n_plain, n_fuzzy, salt):
     rng = np.random.default_rng(seed)
     return (bench.make_queries(n_plain, words, probs, rng)
             + bench.make_fuzzy_queries(n_fuzzy, words, probs, rng, salt))
+
+
+def _mixed(seed, n_mixed, n_dense):
+    """bench's mixed trace plus boolean queries over the heaviest
+    (dense-row) terms: AND, AND NOT, grouped and nested."""
+    words, probs = _vocab()
+    rng = np.random.default_rng(seed)
+    out = bench.make_mixed_queries(n_mixed, words, probs, rng)
+    for _ in range(n_dense):
+        h, h2 = (str(w) for w in words[rng.integers(0, 12, 2)])
+        a, b, c = (str(w) for w in words[rng.choice(VOCAB, 3, p=probs)])
+        out += [f"{h} AND {a}", f"{a} {b} AND NOT {h}",
+                f"({h} OR {a}) AND {b}", f"{h} AND {h2}",
+                f"(({a} OR {b}) AND NOT {c}) OR ({h} AND {b})"]
+    return out
+
+
+@pytest.fixture(params=[True, False], ids=["hybrid", "blockdense"])
+def hybrid(request, monkeypatch):
+    """NXS_MASKED_HYBRID in both packages: on, masked rows with dense
+    terms take the sliced hybrid; off, the port's blockdense route."""
+    monkeypatch.setattr(jsearch, "_MASKED_HYBRID", request.param)
+    monkeypatch.setattr(psearch, "_MASKED_HYBRID", request.param)
+    psearch.EXEC_STATS.clear()
+    return request.param
 
 
 @pytest.fixture(scope="module")
@@ -153,10 +185,66 @@ def test_search_pipelined_matches_reference(pair):
             assert_same(r, g, q)
 
 
-def test_delta_path_matches_reference(pair):
+def _assert_routes(hybrid):
+    stats = psearch.EXEC_STATS
+    assert stats.get("sliced", 0) > 0
+    if hybrid:
+        assert stats.get("blockdense", 0) == 0, stats
+    else:
+        assert stats.get("blockdense", 0) > 0, stats
+
+
+def test_mixed_search_many_matches_reference(pair, hybrid):
+    jidx, pidx = pair
+    queries = _mixed(11, 300, 16)
+    want = jidx.search_many(queries, REF)
+    got = pidx.search_many(queries, PORT)
+    for q, r, g in zip(queries, want, got):
+        assert_same(r, g, q)
+    _assert_routes(hybrid)
+    assert sum(len(g.results) for g, q in zip(got, queries)
+               if " AND " in q) > 0
+
+
+def test_mixed_search_matches_reference(pair, hybrid):
+    jidx, pidx = pair
+    for q in _mixed(12, 30, 3):
+        assert_same(jidx.search(q, REF), pidx.search(q, PORT), q)
+    _assert_routes(hybrid)
+
+
+def test_mixed_search_pipelined_matches_reference(pair, hybrid):
+    jidx, pidx = pair
+    queries = _mixed(13, 160, 8)
+    batches = [queries[i: i + 50] for i in range(0, len(queries), 50)]
+    want = jidx.search_pipelined(batches, REF)
+    got = pidx.search_pipelined(batches, PORT)
+    for b_q, b_r, b_g in zip(batches, want, got):
+        for q, r, g in zip(b_q, b_r, b_g):
+            assert_same(r, g, q)
+    _assert_routes(hybrid)
+
+
+def test_mixed_tfidf_matches_reference(pair, hybrid):
+    """TF-IDF has no impact-prefix plans: every row takes the sliced or
+    blockdense executors."""
+    jidx, pidx = pair
+    queries = _mixed(15, 60, 4)
+    want = jidx.search_many(queries, _params(nxsearch_tpu, 11).set_str(
+        "algo", "TF-IDF"))
+    got = pidx.search_many(queries, _params(nxsearch_tpu_torch).set_str(
+        "algo", "TF-IDF"))
+    for q, r, g in zip(queries, want, got):
+        assert_same(r, g, q)
+    _assert_routes(hybrid)
+    assert psearch.EXEC_STATS.get("prefix", 0) == 0
+
+
+def test_delta_path_matches_reference(pair, monkeypatch):
     """Add, then remove, then re-search: both packages sync the
     journals; the port scores the delta on the host and masks the
-    tombstoned base documents on the device."""
+    tombstoned base documents on the device.  Boolean queries too, on
+    both masked routes."""
     jidx, pidx = pair
     jidx.add_many([(doc_id + 100_000, text) for doc_id, text in
                    bench.zipf_range(N_DOCS, N_DOCS + 200, VOCAB,
@@ -173,3 +261,13 @@ def test_delta_path_matches_reference(pair):
     for q in queries[:6]:
         assert_same(jidx.search(q, REF),
                     pidx.search(q, PORT), q)
+    mixed = _mixed(14, 120, 6)
+    for on in (True, False):
+        monkeypatch.setattr(jsearch, "_MASKED_HYBRID", on)
+        monkeypatch.setattr(psearch, "_MASKED_HYBRID", on)
+        want = jidx.search_many(mixed, REF)
+        got = pidx.search_many(mixed, PORT)
+        for q, r, g in zip(mixed, want, got):
+            assert_same(r, g, q)
+        for q in mixed[-5:]:
+            assert_same(jidx.search(q, REF), pidx.search(q, PORT), q)

@@ -12,8 +12,13 @@ reports, on stderr and as one JSON line on stdout:
   torch.profiler: wall time, the union of device kernel intervals (the
   device's busy share of the pass; the profiler slows the host, so the
   share is also given against the same call's unprofiled wall time),
-  the ops with the most device self time, and the Myers kernel's time
-  and launches;
+  the ops with the most device self time, and the Myers and segsum
+  kernels' time and launches;
+- the same for boolean traffic: the mixed trace (chip_smoke.py's
+  mixed phase: masked sliced and masked-hybrid rows) through
+  search_pipelined, with its host phases per batch, and the blockdense
+  route (chip_smoke.py's blockdense queries with the masked hybrid
+  off: segsum kernel, program evaluation, top-k over every slot);
 - peak device memory.
 
 Usage: python3 tools/profile_port.py   (needs a CUDA card)
@@ -92,6 +97,8 @@ def profiled(fn) -> dict:
             busy_us += b - max(a, end)
             end = b
     myers = [e.time_range.elapsed_us() for e in kernels if "myers" in e.name]
+    segsum = [e.time_range.elapsed_us() for e in kernels
+              if "segsum" in e.name]
     # key_averages() lists each kernel a second time as its own entry:
     # keep the host ops (their self device time covers their kernels).
     ops = []
@@ -106,6 +113,7 @@ def profiled(fn) -> dict:
             "busy_share": busy_us / 1e3 / wall_ms,
             "kernels": len(spans),
             "myers_ms": sum(myers) / 1e3, "myers_launches": len(myers),
+            "segsum_ms": sum(segsum) / 1e3, "segsum_launches": len(segsum),
             "top_ops_ms": [[k, round(ms, 4), n] for ms, k, n in ops[:10]]}
 
 
@@ -121,9 +129,12 @@ def unprofiled(fn) -> float:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
+    import bench
     from nxsearch_tpu_torch import Params
+    from nxsearch_tpu_torch import search as search_mod
 
     if not torch.cuda.is_available():
         smoke.log("profile_port: no CUDA device")
@@ -147,7 +158,30 @@ def main() -> int:
         fz = [profiled(lambda s=s: idx.search_many(s, sp))
               for s in fuzzy[1:3]]
         fz_plain = unprofiled(lambda: idx.search_many(fuzzy[3], sp))
-        for runs, wall in ((search, min(plain)), (fz, fz_plain)):
+
+        words, probs = smoke.vocab()
+        mq = bench.make_mixed_queries(smoke.N_MIXED, words, probs,
+                                      np.random.default_rng(43))
+        mb = [mq[i: i + smoke.BATCH]
+              for i in range(0, smoke.N_MIXED, smoke.BATCH)]
+        idx.search_pipelined(mb, sp)             # warm-up
+        mixed_phases = [host_phases(idx, mb, sp) for _ in range(2)]
+        mixed_plain = min(unprofiled(lambda: idx.search_pipelined(mb, sp))
+                          for _ in range(2))
+        mixed = [profiled(lambda: idx.search_pipelined(mb, sp))
+                 for _ in range(2)]
+
+        bdq = smoke.bd_queries(idx)
+        search_mod._MASKED_HYBRID = False
+        try:
+            idx.search_many(bdq[:64], sp)        # warm-up
+            bd_plain = unprofiled(lambda: idx.search_many(bdq, sp))
+            bd = [profiled(lambda: idx.search_many(bdq, sp))
+                  for _ in range(2)]
+        finally:
+            search_mod._MASKED_HYBRID = True
+        for runs, wall in ((search, min(plain)), (fz, fz_plain),
+                           (mixed, mixed_plain), (bd, bd_plain)):
             for r in runs:
                 r["unprofiled_wall_ms"] = wall
                 r["busy_share_unprofiled"] = r["device_busy_ms"] / wall
@@ -156,8 +190,11 @@ def main() -> int:
     out = {"card": card, "ingest_s": ingest_s,
            "snapshot_gib": snapshot_gib, "peak_gib": peak_gib,
            "batch": smoke.BATCH, "phases_ms_per_batch": phases,
-           "search_pipelined": search, "fuzzy_search_many": fz}
-    for name, runs in (("search_pipelined", search), ("fuzzy", fz)):
+           "search_pipelined": search, "fuzzy_search_many": fz,
+           "mixed_phases_ms_per_batch": mixed_phases,
+           "mixed_search_pipelined": mixed, "blockdense_search_many": bd}
+    for name, runs in (("search_pipelined", search), ("fuzzy", fz),
+                       ("mixed", mixed), ("blockdense", bd)):
         for r in runs:
             smoke.log(f"{name}: wall {r['wall_ms']:.1f} ms, device busy "
                       f"{r['device_busy_ms']:.1f} ms "
@@ -166,7 +203,9 @@ def main() -> int:
                       f"{r['unprofiled_wall_ms']:.1f} ms), "
                       f"{r['kernels']} kernels, "
                       f"myers {r['myers_ms']:.3f} ms in "
-                      f"{r['myers_launches']} launches")
+                      f"{r['myers_launches']} launches, segsum "
+                      f"{r['segsum_ms']:.3f} ms in "
+                      f"{r['segsum_launches']} launches")
     print(json.dumps(out), flush=True)
     return 0
 
