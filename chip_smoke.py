@@ -2,21 +2,30 @@
 """Smoke test of the PyTorch / CUDA port (nxsearch_tpu_torch) on one card.
 
 Drives the port's paths -- BM25 top-10 batch search with fuzzy (typo)
-resolution, boolean (AND / NOT) search on the masked sliced route and on
-the blockdense route -- at the benchmark's 1M-document tier, through the
-entry points a user calls (Nxs, Index.add_many, search_pipelined,
-search_many), and checks every hand-written kernel of those paths
-against its plain PyTorch twin.  Phases (any failure exits non-zero
-and prints no result):
+resolution by the forward, transposed (NXS_FUZZY_REV=1) and
+single-query Myers kernels, boolean (AND / NOT) search on the masked
+sliced route and on the blockdense route -- at the benchmark's
+1M-document tier, through the entry points a user calls (Nxs,
+Index.add_many, search, search_pipelined, search_many), and checks
+every hand-written kernel of those paths against its plain PyTorch
+twin.  Phases (any failure exits non-zero and prints no result):
 
 1. card check and kernel build: needs torch.cuda; prints the card's
    name and power limit; builds csrc/*.cu with nvcc (first use), one
-   nvcc per source, all started together;
-2. kernel phase: the Myers kernel against myers_distances_ref at the
-   main path's shape (one chunk of M = 64 typo rows over the length
-   band's region, which in the bench vocabulary -- all 200,000 terms
-   are 6 bytes -- is W = 200,000 terms), exact equality, both timed
-   with CUDA events (median of runs);
+   nvcc per source, all started together, and beside them compiles the
+   Myers step (csrc/myers_step.cuh) alone and counts its SASS integer
+   instructions with cuobjdump (the Myers kernels' operations bound);
+2. kernel phase: the forward and transposed Myers kernels against their
+   twins and against each other, exact equality, on M = 64 query rows
+   (one chunk) over W = 200,000 terms twice: terms and queries of 1-32
+   random bytes (32-byte and q_len 0 rows included), and the main
+   path's band (the bench vocabulary, whose 200,000 terms are 6 or 7
+   bytes, and 64 of its 6-8 byte typos); the single-query kernel (the
+   wrapper at M = 1) against its plain version and the batched
+   instantiation at M = 1 on rows of both; kernels timed with CUDA
+   events behind a sleep kernel (device time only), forward and
+   transposed in turns (fwd, rev, rev, fwd), and the single-query and
+   batched instantiations at M = 1 in turns;
 3. slice phase: ingest bench.py's 1M tier (zipf_range, vocab 200k,
    mean length 40) into a temporary basedir; after one warm-up pass,
    three passes of search_pipelined over 8192 make_queries queries in
@@ -28,30 +37,44 @@ and prints no result):
    oracle -- Levenshtein over the host's term dictionary for words it
    lacks, BM25 over the host CSR -- (same top-10 ids under the
    lowest-device-slot tie rule, scores within 1e-4);
-4. mixed phase: bench.make_mixed_queries (8192 queries: 25 % AND /
+4. rev phase: with the transposed sweep on (fuzzy._USE_REV_KERNEL, as
+   NXS_FUZZY_REV=1 sets it), three search_many passes over 512 fresh
+   make_fuzzy_queries each, interleaved with forward passes over their
+   own fresh sets (medians of both reported); asserts rev launches > 0
+   and no forward launch during the rev passes, every rev answer equal
+   to the same query's answer on the forward route (typos re-resolved),
+   and 16 sampled rev answers against the numpy oracle;
+5. single-query phase: 64 Index.search calls of one fresh typo query
+   each; asserts one single-query kernel launch per distinct uncached
+   typo and every answer equal to the same query's through search_many
+   (typos re-resolved);
+6. mixed phase: bench.make_mixed_queries (8192 queries: 25 % AND /
    AND NOT rows, 5 % typos) through search_pipelined in batches of
    2048 on the default route, after one warm-up pass; three passes,
    median QPS; asserts masked sliced rows and masked dense-row hybrid
    rows > 0;
-5. blockdense phase: 512 masked queries that each hold a dense-row
+7. blockdense phase: 512 masked queries that each hold a dense-row
    term (``d AND a``, ``a b AND NOT d``) through search_many with the
    masked hybrid off (search._MASKED_HYBRID, as NXS_MASKED_HYBRID=0
    sets it), so they take the blockdense route; asserts blockdense rows
    and segsum launches > 0 and every answer equal to the same query on
    the default route (both are exact: same ids up to an adjacent swap
    of scores within 1e-4, scores within 1e-4);
-6. segsum phase: the segsum kernel against blockdense_scores_ref at the
+8. segsum phase: the segsum kernel against blockdense_scores_ref at the
    blockdense route's shape (the 64 first blockdense queries: bounds
    rows from the snapshot's cache, 8 terms, every slot, BM25, presence
    bits), scores and bits equal bit for bit, both timed with CUDA
    events;
-7. boolean oracle: 64 sampled masked queries of each of phases 4 and 5,
+9. boolean oracle: 64 sampled masked queries of each of phases 6 and 7,
    their parsed query trees walked over per-term document sets of the
    host CSR, BM25 over the matching documents (same tie rule and
    tolerance as phase 3).
 
-The next-to-last lines are the kernel table (JSON) and the card line;
-the last line is {"ok": true, "device": {...}}.
+The next-to-last lines are the kernel table (JSON: per kernel its
+launches on its path, exactness, kernel / plain times, and its bound:
+the larger of the bytes it must move over the card's memory rate and
+its operations over the card's peak rate for their type) and the card
+line; the last line is {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py
 """
@@ -81,8 +104,49 @@ N_MIXED = 8192
 N_BD = 512
 N_SEGSUM = 64           # blockdense queries in the segsum kernel phase
 N_BOOL_ORACLE = 64      # per masked phase
+N_SINGLE = 64           # Index.search calls of the single-query phase
 PASSES = 3              # measured passes (median reported)
 TOL = 1e-4               # score tolerance of the reference's own tests
+
+# The card's peak rates for the kernels' bounds: HBM3 bytes per second
+# and FP32 operations per second of an H100 SXM (NVIDIA's data sheet);
+# INT32 operations per second are SMs x INT32 lanes per SM x the SM
+# clock nvidia-smi reports as the card's maximum.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+INT32_LANES_PER_SM = 64
+# Operations of the Myers kernels' bound: the SASS instructions of one
+# step (myers_step_instructions).  Segsum: ops per posting (ltf*idf,
+# ltf+c1, c2*dl, +, /, and the accumulate).
+SEGSUM_POSTING_OPS = 6
+# csrc/myers_step.cuh alone: probe<K> runs K steps on per-thread state
+# loaded from memory, so probe<9> - probe<1> is 8 steps' instructions.
+STEP_PROBE = r"""
+#include "myers_step.cuh"
+template <int kSteps>
+__global__ void probe(const uint32_t* __restrict__ in,
+                      uint32_t* __restrict__ out) {
+  const uint32_t* p = in + 16 * threadIdx.x;
+  uint32_t pv = p[0], mv = p[1];
+  int score = (int)p[4];
+#pragma unroll
+  for (int i = 0; i < kSteps; ++i) {
+    myers_step(p[5 + i], p[2], p[3], pv, mv, score);
+  }
+  out[3 * threadIdx.x] = pv;
+  out[3 * threadIdx.x + 1] = mv;
+  out[3 * threadIdx.x + 2] = (uint32_t)score;
+}
+template __global__ void probe<1>(const uint32_t*, uint32_t*);
+template __global__ void probe<9>(const uint32_t*, uint32_t*);
+"""
+# SASS opcodes that are not per-lane integer work: memory, control,
+# special-register reads and the uniform datapath (U*).
+SASS_NOT_ALU = ("LD", "ST", "ATOM", "RED", "BRA", "BRX", "JMP", "EXIT",
+                "RET", "CALL", "NOP", "BAR", "BSSY", "BSYNC", "WARPSYNC",
+                "YIELD", "MEMBAR", "DEPBAR", "S2R", "CS2R", "S2UR", "U")
+SLEEP_CYCLES = 4_000_000    # about 2 ms of the card's clock (cuda_times)
+KERNEL_REPS = 10            # kernel calls per timed sample
 
 
 def log(msg: str) -> None:
@@ -97,28 +161,128 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, runs: int) -> float:
-    """Median device time of ``fn`` over ``runs`` calls (CUDA events)."""
+def sm_clock_max_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over their peak rate."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def int32_ops_per_s() -> float:
+    import torch
+    return (torch.cuda.get_device_properties(0).multi_processor_count
+            * INT32_LANES_PER_SM * sm_clock_max_mhz() * 1e6)
+
+
+def sass_alu_counts(sass: str) -> dict:
+    """Per function of ``cuobjdump -sass`` output (keyed by its mangled
+    name), the count of per-lane integer instructions: every opcode
+    that is not memory, control flow, a special-register read or a
+    uniform-datapath op (SASS_NOT_ALU)."""
+    import re
+
+    counts, name = {}, None
+    op = re.compile(r"^\s*/\*[0-9a-f]+\*/\s*\{?\s*(?:@!?\w+\s+)?([A-Z0-9_]+)")
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if head:
+            name = head.group(1)
+            counts[name] = 0
+            continue
+        m = op.match(line)
+        if name is not None and m and not m.group(1).startswith(
+                SASS_NOT_ALU):
+            counts[name] += 1
+    return counts
+
+
+def myers_step_instructions() -> float:
+    """Integer instructions of one Myers step (csrc/myers_step.cuh) as
+    nvcc compiles it for sm_90a with the kernels' flags: the probe's
+    9-step and 1-step functions' counts apart, over 8."""
+    from nxsearch_tpu_torch.ops import kernels
+
+    nvcc = kernels._nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "probe.cu")
+        cubin = os.path.join(tmp, "probe.cubin")
+        with open(src, "w") as f:
+            f.write(STEP_PROBE)
+        flags = [f for f in kernels.NVCC_FLAGS
+                 if f not in ("-shared", "-Xcompiler", "-fPIC")]
+        subprocess.run([nvcc, *flags, "-cubin", "-I", kernels.CSRC_DIR,
+                        "-o", cubin, src], check=True, capture_output=True,
+                       timeout=300)
+        sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                              capture_output=True, text=True,
+                              timeout=60).stdout
+    counts = sass_alu_counts(sass)
+    one = [v for k, v in counts.items() if "probeILi1E" in k]
+    nine = [v for k, v in counts.items() if "probeILi9E" in k]
+    if len(one) != 1 or len(nine) != 1:
+        raise AssertionError(f"step probe: functions not found in "
+                             f"{sorted(counts)}")
+    per_step = (nine[0] - one[0]) / 8
+    if not 4 <= per_step <= 64:
+        raise AssertionError(f"step probe: {per_step} instructions per "
+                             f"step ({counts})")
+    return per_step
+
+
+def cuda_times(fn, runs: int, reps: int = 1) -> list[float]:
+    """Device milliseconds per call of ``fn``, ``runs`` samples of
+    ``reps`` calls each (CUDA events).  Each sample is queued behind a
+    sleep kernel, so the card starts the timed calls only once the host
+    has queued them: the wrappers' host work (about 0.03 ms a call)
+    stays off the clock unless ``fn`` synchronizes, as the plain
+    versions' data-dependent shapes do."""
     import torch
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    times.sort()
-    return times[len(times) // 2]
+        times.append(start.elapsed_time(stop) / reps)
+    return times
 
 
-def kernel_phase(seed: int = 0) -> dict:
-    """Myers kernel vs its plain twin at the main path's shape."""
+def median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def cuda_time_ms(fn, runs: int, reps: int = 1) -> float:
+    """Median device time per call of ``fn`` (see cuda_times)."""
+    return median(cuda_times(fn, runs, reps))
+
+
+def myers_inputs(seed: int = 0):
+    """(random, band) Myers inputs on the card, each (vocab bytes,
+    vocab lengths, query bytes, query lengths) with M = KERNEL_M rows
+    and W = KERNEL_W terms.  Random: 1-32 bytes from 8 letters, a
+    32-byte and a q_len 0 query row.  Band: the bench vocabulary (6 and
+    7 byte terms) and typos of it as make_fuzzy_queries makes them (6-8
+    bytes)."""
     import numpy as np
     import torch
 
-    from nxsearch_tpu_torch.ops import kernels
+    import bench
 
     m_q, w = KERNEL_M, KERNEL_W
     rng = np.random.default_rng(seed)
@@ -130,21 +294,137 @@ def kernel_phase(seed: int = 0) -> dict:
     ql[0], ql[1] = 32, 0                  # full-width row, q_len 0 row
     qb = alphabet[rng.integers(0, len(alphabet), size=(m_q, 32))]
     qb[np.arange(32)[None, :] >= ql[:, None]] = 0
-    dev = torch.device("cuda")
-    args = [torch.from_numpy(a).to(dev) for a in (vb, vl, qb, ql)]
 
-    out_k = kernels.myers_distances(*args)
-    out_r = kernels.myers_distances_ref(*args)
-    torch.cuda.synchronize()
-    max_err = int((out_k - out_r).abs().max())
-    if not torch.equal(out_k, out_r):
-        raise AssertionError(
-            f"Myers kernel disagrees with its twin: max |diff| {max_err}")
-    kernel_ms = cuda_time_ms(lambda: kernels.myers_distances(*args), 21)
-    plain_ms = cuda_time_ms(lambda: kernels.myers_distances_ref(*args), 5)
-    log(f"kernel phase: myers M={m_q} W={w}: exact; kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms}
+    def pack(tokens):
+        out = np.zeros((len(tokens), 32), dtype=np.uint8)
+        for i, t in enumerate(tokens):
+            out[i, : len(t)] = np.frombuffer(t.encode(), dtype=np.uint8)
+        return out, np.array([len(t) for t in tokens], dtype=np.int32)
+
+    words, probs = vocab()
+    typos = [q.split()[1] for q in bench.make_fuzzy_queries(
+        m_q, words, probs, rng, "k")]
+    dev = torch.device("cuda")
+    return ([torch.from_numpy(a).to(dev) for a in (vb, vl, qb, ql)],
+            [torch.from_numpy(a).to(dev)
+             for a in (*pack(list(words)), *pack(typos))])
+
+
+def myers_ops(vl, ql, rev: bool, step_ops: float) -> float:
+    """Integer operations of a Myers sweep on these inputs: a forward
+    sweep runs min(len(term), 32) steps per (query, term) pair, a
+    transposed one min(len(query), 32), each of ``step_ops``."""
+    steps_t = float(vl.clamp(0, 32).sum())
+    steps_q = float(ql.clamp(0, 32).sum())
+    pairs_steps = (steps_q * vl.shape[0] if rev else steps_t * ql.shape[0])
+    return step_ops * pairs_steps
+
+
+def myers_bytes(vb, vl, qb, ql) -> float:
+    """Each input read once, the int32[M, W] output written once."""
+    return float(vb.numel() + 4 * vl.numel() + qb.numel() + 4 * ql.numel()
+                 + 4 * ql.numel() * vl.numel())
+
+
+def batched_at_one(vb, vl, qb, ql):
+    """The batched instantiation (MYERS) launched at M = 1, which the
+    wrapper never does: the single-query instantiation's comparison."""
+    import torch
+
+    from nxsearch_tpu_torch.ops import kernels
+
+    out = torch.empty((1, vb.shape[0]), dtype=torch.int32, device=vb.device)
+    kernels.MYERS.launch(vb.data_ptr(), vl.data_ptr(), qb.data_ptr(),
+                         ql.data_ptr(), out.data_ptr(), vb.shape[0], 1)
+    return out
+
+
+def kernel_phase(step_ops: float) -> dict:
+    """The three Myers kernels against their plain versions and against
+    each other, at the main path's shapes; times with CUDA events.
+    ``step_ops``: integer instructions per Myers step (the bound)."""
+    import torch
+
+    from nxsearch_tpu_torch.ops import kernels
+
+    rand, band = myers_inputs()
+    max_err = {"fwd": 0, "rev": 0, "one": 0}
+
+    def check(name, got, want, what):
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err[name] = max(max_err[name], err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: max |diff| {err}")
+
+    for shape, args in (("random", rand), ("band", band)):
+        fwd = kernels.myers_distances(*args)
+        rev = kernels.myers_rev_distances(*args)
+        check("fwd", fwd, kernels.myers_distances_ref(*args),
+              f"forward kernel vs its twin ({shape})")
+        check("rev", rev, kernels.myers_rev_distances_ref(*args),
+              f"transposed kernel vs its twin ({shape})")
+        check("rev", rev, fwd, f"transposed vs forward kernel ({shape})")
+        vb, vl, qb, ql = args
+        for i in (0, 1):              # random: 32-byte and q_len 0 rows
+            one = kernels.myers_distances(vb, vl, qb[i: i + 1],
+                                          ql[i: i + 1])
+            check("one", one[0], kernels.myers_distances_one_ref(
+                vb, vl, qb[i], ql[i]), f"single-query kernel vs its "
+                f"plain version ({shape}, row {i})")
+            check("one", one, fwd[i: i + 1],
+                  f"single-query vs batched kernel ({shape}, row {i})")
+            check("one", one, batched_at_one(vb, vl, qb[i: i + 1],
+                                             ql[i: i + 1]),
+                  f"single-query vs batched kernel at M = 1 ({shape}, "
+                  f"row {i})")
+
+    out = {}
+    vb, vl, qb, ql = band
+    # Forward and transposed in turns on one card: fwd, rev, rev, fwd.
+    for shape, args in (("random", rand), ("band", band)):
+        t = {"fwd": [], "rev": []}
+        for name in ("fwd", "rev", "rev", "fwd"):
+            fn = (kernels.myers_distances if name == "fwd"
+                  else kernels.myers_rev_distances)
+            t[name] += cuda_times(lambda fn=fn: fn(*args), 11, KERNEL_REPS)
+        out[shape] = {k: median(v) for k, v in t.items()}
+    one_args = (vb, vl, qb[:1], ql[:1])
+    # The single-query and batched instantiations at M = 1 in turns:
+    # one, batched, batched, one.
+    t = {"one": [], "batched_m1": []}
+    for name in ("one", "batched_m1", "batched_m1", "one"):
+        fn = (kernels.myers_distances if name == "one" else batched_at_one)
+        t[name] += cuda_times(lambda fn=fn: fn(*one_args), 11, KERNEL_REPS)
+    out["band"].update({k: median(v) for k, v in t.items()})
+    plain = {
+        "fwd": cuda_time_ms(lambda: kernels.myers_distances_ref(*band), 5),
+        "rev": cuda_time_ms(
+            lambda: kernels.myers_rev_distances_ref(*band), 5),
+        "one": cuda_time_ms(lambda: kernels.myers_distances_one_ref(
+            vb, vl, qb[0], ql[0]), 5)}
+    int_rate = int32_ops_per_s()
+    bounds = {
+        "fwd": bound(myers_bytes(*band), myers_ops(vl, ql, False, step_ops),
+                     int_rate),
+        "rev": bound(myers_bytes(*band), myers_ops(vl, ql, True, step_ops),
+                     int_rate),
+        "one": bound(myers_bytes(*one_args),
+                     myers_ops(vl, ql[:1], False, step_ops), int_rate)}
+    log(f"kernel phase: M={KERNEL_M} W={KERNEL_W}; forward, transposed and "
+        f"single-query kernels exact against their plain versions and "
+        f"each other (random 1-32 byte rows and the 6-7 byte band); "
+        f"random: fwd {out['random']['fwd']:.4f} ms, rev "
+        f"{out['random']['rev']:.4f} ms; band: fwd "
+        f"{out['band']['fwd']:.4f} ms, rev {out['band']['rev']:.4f} ms, "
+        f"single {out['band']['one']:.4f} ms, batched at M = 1 "
+        f"{out['band']['batched_m1']:.4f} ms; plain (band): fwd "
+        f"{plain['fwd']:.4f} ms, rev {plain['rev']:.4f} ms, single "
+        f"{plain['one']:.4f} ms; INT32 peak {int_rate:.4e} op/s, "
+        f"{step_ops} instructions per Myers step; bounds {bounds}")
+    return {name: {"max_abs_err": max_err[name], "ms": out["band"][name],
+                   "plain_ms": plain[name], **bounds[name]}
+            for name in ("fwd", "rev", "one")} | {"times": out}
 
 
 def oracle_top(csr, host, term_ids, dev_rank, limit: int):
@@ -434,11 +714,140 @@ def slice_phase(idx, sp, ingest_s: float, oracle: HostOracle) -> dict:
 def reset_counts() -> None:
     """Every kernel's launch count and the route counters to 0."""
     from nxsearch_tpu_torch import search as search_mod
-    from nxsearch_tpu_torch.ops import kernels
 
-    kernels.MYERS.launches = 0
-    kernels.SEGSUM.launches = 0
+    for kernel in all_kernels():
+        kernel.launches = 0
     search_mod.EXEC_STATS.clear()
+
+
+def all_kernels():
+    """Every kernel object of the port (two share csrc/myers.cu)."""
+    from nxsearch_tpu_torch.ops import kernels
+    return (kernels.MYERS, kernels.MYERS_ONE, kernels.MYERS_REV,
+            kernels.SEGSUM)
+
+
+def myers_counts() -> dict:
+    from nxsearch_tpu_torch.ops import kernels
+    return {"fwd": kernels.MYERS.launches, "one": kernels.MYERS_ONE.launches,
+            "rev": kernels.MYERS_REV.launches}
+
+
+def forget_typos(idx) -> None:
+    """Drop the fuzzy matcher's memo of resolved typos, so the next
+    search resolves them again (on whatever route is set)."""
+    idx._fuzzy._memo_cache = None
+
+
+def rev_phase(idx, sp, oracle: HostOracle) -> dict:
+    """Fuzzy search_many with the transposed sweep on, interleaved with
+    forward passes; answers held to the forward route's and the
+    oracle."""
+    import numpy as np
+    import torch
+
+    import bench
+    from nxsearch_tpu_torch import fuzzy as fuzzy_mod
+
+    words, probs = vocab()
+    rng = np.random.default_rng(45)
+    # Fresh typos for every pass: g warms up, a-c rev, d-f fwd.
+    sets = {s: bench.make_fuzzy_queries(N_FUZZY, words, probs, rng, s)
+            for s in "gabcdef"}
+    saved = fuzzy_mod._USE_REV_KERNEL
+    rev_qps, fwd_qps, rev_out = [], [], []
+    launches = {"fwd": 0, "one": 0, "rev": 0}
+    try:
+        fuzzy_mod._USE_REV_KERNEL = True
+        idx.search_many(sets["g"][:64], sp)             # warm-up
+        torch.cuda.synchronize()
+        for p in range(PASSES):
+            fuzzy_mod._USE_REV_KERNEL = True
+            reset_counts()
+            t0 = time.perf_counter()
+            rev_out.append(idx.search_many(sets["abc"[p]], sp))
+            rev_qps.append(N_FUZZY / (time.perf_counter() - t0))
+            for k, v in myers_counts().items():
+                launches[k] += v
+            fuzzy_mod._USE_REV_KERNEL = False
+            t0 = time.perf_counter()
+            idx.search_many(sets["def"[p]], sp)
+            fwd_qps.append(N_FUZZY / (time.perf_counter() - t0))
+        fuzzy_mod._USE_REV_KERNEL = False
+        log(f"rev phase: fuzzy search_many ({N_FUZZY} queries) with the "
+            f"transposed sweep: median {median(rev_qps):.1f} QPS of "
+            f"{[round(x, 1) for x in rev_qps]}; forward passes between "
+            f"them: median {median(fwd_qps):.1f} QPS of "
+            f"{[round(x, 1) for x in fwd_qps]}; launches during the rev "
+            f"passes {launches}")
+        if launches["rev"] <= 0 or launches["fwd"] or launches["one"]:
+            raise AssertionError(f"rev passes: transposed launches only "
+                                 f"expected, got {launches}")
+        # The same queries on the forward route, typos re-resolved.
+        reset_counts()
+        for p in range(PASSES):
+            forget_typos(idx)
+            want = idx.search_many(sets["abc"[p]], sp)
+            for q, w, g in zip(sets["abc"[p]], want, rev_out[p]):
+                same_answer(w, g, q)
+            check_finite(rev_out[p])
+        if myers_counts()["fwd"] <= 0:
+            raise AssertionError("the forward route launched no kernel")
+    finally:
+        fuzzy_mod._USE_REV_KERNEL = saved
+    sample = np.random.default_rng(9).choice(N_FUZZY, N_FUZZY_ORACLE,
+                                             replace=False)
+    oracle.n_typos = 0
+    for i in sample:
+        oracle.check_plain(sets["a"][int(i)], rev_out[0][int(i)])
+    if oracle.n_typos < N_FUZZY_ORACLE:
+        raise AssertionError(f"only {oracle.n_typos} typo tokens resolved")
+    log(f"rev phase: {PASSES} x {N_FUZZY} answers equal the forward "
+        f"route's; {N_FUZZY_ORACLE} sampled rev answers agree with the "
+        "oracle")
+    return {"qps": median(rev_qps), "qps_samples": rev_qps,
+            "fwd_qps": median(fwd_qps), "fwd_qps_samples": fwd_qps,
+            "launches": launches}
+
+
+def single_phase(idx, sp) -> dict:
+    """One typo query per Index.search: each distinct uncached typo is
+    resolved by one single-query kernel launch."""
+    import numpy as np
+
+    import bench
+
+    words, probs = vocab()
+    queries = bench.make_fuzzy_queries(N_SINGLE, words, probs,
+                                       np.random.default_rng(46), "h")
+    typos = set()
+    for q in queries:
+        for v in q.split():
+            f = idx.pipeline.run(v)
+            if f is not None and idx.host.term_lookup(f) is None:
+                typos.add(f)
+    reset_counts()
+    times = []
+    got = []
+    for q in queries:
+        t0 = time.perf_counter()
+        got.append(idx.search(q, sp))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = myers_counts()
+    log(f"single-query phase: {N_SINGLE} Index.search calls, "
+        f"{len(typos)} distinct typos: median {median(times):.4f} ms per "
+        f"search; launches {launches}")
+    if launches != {"fwd": 0, "one": len(typos), "rev": 0} or not typos:
+        raise AssertionError(f"one single-query launch per distinct typo "
+                             f"({len(typos)}) expected: {launches}")
+    forget_typos(idx)
+    want = idx.search_many(queries, sp)
+    for q, w, g in zip(queries, want, got):
+        same_answer(w, g, q)
+    check_finite(got)
+    log(f"single-query phase: {N_SINGLE} answers equal search_many's")
+    return {"ms_per_search": median(times), "launches": launches["one"],
+            "typos": len(typos)}
 
 
 def check_finite(responses) -> None:
@@ -620,13 +1029,19 @@ def segsum_phase(idx, queries: list[str]) -> dict:
             f"{int((got_b != want_b).sum())} bit words differ")
     if not bool((want_s > 0).any()):
         raise AssertionError("segsum phase scored nothing")
-    kernel_ms = cuda_time_ms(kernel, 21)
+    kernel_ms = cuda_time_ms(kernel, 21, KERNEL_REPS)
     plain_ms = cuda_time_ms(plain, 5)
     n_post = int((bounds[:, :, -1] - bounds[:, :, 0]).sum())
+    # Scores and bits written once; each posting's slot and ltf, the
+    # per-slot columns, the bounds and coef read once.
+    n_bytes = (8 * bounds.shape[0] * dev.n_slots + 8 * n_post
+               + 8 * dev.n_slots + 4 * bounds.numel() + 4 * coef.size)
+    b = bound(n_bytes, SEGSUM_POSTING_OPS * n_post, FP32_OPS_PER_S)
     log(f"segsum phase: N={bounds.shape[0]} Q={bounds.shape[1]} "
         f"S={dev.n_slots} ({n_post} postings): scores and bits exact; "
-        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms}
+        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {b}")
+    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+            **b}
 
 
 def boolean_oracle(oracle: HostOracle, mixed: dict, bd: dict) -> None:
@@ -653,17 +1068,21 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from nxsearch_tpu_torch import Params
-    from nxsearch_tpu_torch.ops import kernels
 
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda k: k.build(), (kernels.MYERS, kernels.SEGSUM)))
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    sources = {k.source: k for k in all_kernels()}   # one nvcc per source
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        probe = pool.submit(myers_step_instructions)
+        list(pool.map(lambda k: k.build(), sources.values()))
+        step_ops = probe.result()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(sources)}); Myers step: {step_ops} integer "
+        "instructions (SASS of csrc/myers_step.cuh)")
 
-    kern = kernel_phase()
+    kern = kernel_phase(step_ops)
     sp = Params().set_uint("limit", 10)
     with tempfile.TemporaryDirectory() as workdir:
         nxs, idx, ingest_s = ingest(workdir)
@@ -679,6 +1098,8 @@ def main() -> int:
                 "allocated")
             oracle = HostOracle(idx)
             sl = slice_phase(idx, sp, ingest_s, oracle)
+            rev = rev_phase(idx, sp, oracle)
+            one = single_phase(idx, sp)
             mixed = mixed_phase(idx, sp)
             bd = bd_phase(idx, sp)
             seg = segsum_phase(idx, bd["queries"])
@@ -692,22 +1113,29 @@ def main() -> int:
                                      "fuzzy_qps_samples", "stats")},
         "mixed": {k: mixed[k] for k in ("qps", "qps_samples", "stats",
                                         "launches")},
+        "rev": rev, "single": one, "myers_times": kern["times"],
+        "myers_step_instructions": step_ops,
         "blockdense": {k: bd[k] for k in ("qps", "stats", "launches")},
         "snapshot_s": snapshot_s, "ingest_s": ingest_s, "docs": N_DOCS}))
 
+    # No single PyTorch call computes Levenshtein distances or the
+    # blockdense scores with their presence bits: library_ms is null.
+    rows = [
+        ("myers_distances", "myers.cu", "fuzzy.py:52",
+         sl["launches"]["myers_distances"], kern["fwd"]),
+        ("myers_rev_distances", "myers_rev.cu", "fuzzy.py:162",
+         rev["launches"]["rev"], kern["rev"]),
+        ("blockdense_scores", "segsum.cu", "segsum.py:162",
+         bd["launches"], seg),
+        ("myers_distances_one", "myers.cu", "fuzzy.py:40",
+         one["launches"], kern["one"])]
     print(json.dumps({"kernels": [{
-        "name": "myers_distances", "route": "cuda",
-        "source": "nxsearch_tpu_torch/csrc/myers.cu",
-        "replaces": "nxsearch_tpu/ops/pallas/fuzzy.py:52",
-        "launches": sl["launches"]["myers_distances"],
-        "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"]}, {
-        "name": "blockdense_scores", "route": "cuda",
-        "source": "nxsearch_tpu_torch/csrc/segsum.cu",
-        "replaces": "nxsearch_tpu/ops/pallas/segsum.py:162",
-        "launches": bd["launches"],
-        "max_abs_err": seg["max_abs_err"], "ms": seg["ms"],
-        "plain_ms": seg["plain_ms"]}]}))
+        "name": name, "route": "cuda",
+        "source": f"nxsearch_tpu_torch/csrc/{src}",
+        "replaces": f"nxsearch_tpu/ops/pallas/{tpu}", "launches": n,
+        **{k: m[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by")},
+        "library_ms": None} for name, src, tpu, n, m in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,20 @@
 // Bit-parallel Myers edit distance of M query tokens to W vocabulary
 // terms, one thread per term.  Hopper (sm_90a) port of the Pallas
-// kernel nxsearch_tpu/ops/pallas/fuzzy.py:_myers_kernel_batch; the
-// plain PyTorch twin is ops/kernels.py:myers_distances_ref and the two
-// agree bit for bit (distances are exact integers).
+// kernels nxsearch_tpu/ops/pallas/fuzzy.py:_myers_kernel_batch (entry
+// nxs_myers_distances; plain PyTorch twin
+// ops/kernels.py:myers_distances_ref) and _myers_kernel, the same body
+// for one query (entry nxs_myers_distances_one; twin
+// myers_distances_one_ref).  Kernel and twins agree bit for bit
+// (distances are exact integers).
 //
 // What bounds it.  Each (query, term) pair costs len(term) Myers steps
-// of ~15 integer ALU operations plus one shared-memory table lookup;
-// the vocabulary is read once per call (W x 32 B, 6.4 MB at W = 200000)
-// and the output is M x W x 4 B.  At M = 64 that is ~2 ALU operations
-// per byte moved, so the kernel is bound by integer ALU throughput
-// and shared-memory lookups, not by device-memory bandwidth.
+// (csrc/myers_step.cuh: 17 integer instructions with nvcc 12.9, the
+// count chip_smoke.py reads from the step's SASS) plus one shared-memory
+// table lookup; the vocabulary is read once per call (W x 32 B, 6.4 MB
+// at W = 200000) and the output is M x W x 4 B.  At M = 64 and 6-7
+// byte terms that is about 25 integer operations per byte moved (the
+// card's balance point is about 5), so the kernel is bound by integer
+// throughput and shared-memory lookups, not by device-memory bandwidth.
 //
 // What the design does about it.
 // - The TPU kernel builds Peq (the bitmask of query positions matching
@@ -27,16 +32,25 @@
 // - Queries are processed in groups of kQGroup whose tables fit shared
 //   memory (32 KB); each output row is stored coalesced across the
 //   block's threads.
+// - The single-query entry instantiates the same kernel with
+//   kQGroup = 1: its tables take 1.3 KB of shared memory instead of
+//   33 KB.  Registers still hold both instantiations to four blocks
+//   per SM (nvcc -Xptxas -v for sm_90a: 64 registers, no spills; the
+//   batched one 62), and chip_smoke.py times the two at M = 1 in
+//   turns: on the H100 they take the same time within a few percent.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "myers_step.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;   // terms per block
-constexpr int kQGroup = 32;     // queries whose Peq tables share smem
 constexpr int kWidth = 32;      // bytes per term / query row
 
+// kQGroup: queries whose Peq tables share smem (32 batched, 1 single).
+template <int kQGroup>
 __global__ void __launch_bounds__(kThreads)
 myers_kernel(const uint8_t* __restrict__ vocab,    // [W, 32] row-major
              const int32_t* __restrict__ vlen,     // [W]
@@ -107,35 +121,42 @@ myers_kernel(const uint8_t* __restrict__ vocab,    // [W, 32] row-major
       for (int j = 0; j < kWidth; ++j) {
         if (j >= n) break;   // past the term's end the state is frozen
         const uint32_t c = (w[j >> 2] >> (8 * (j & 3))) & 0xFFu;
-        const uint32_t eq = tbl[c];
-        const uint32_t xv = eq | mv;
-        const uint32_t xh = (((eq & pv) + pv) ^ pv) | eq;
-        uint32_t ph = mv | ~(xh | pv);
-        uint32_t mh = pv & xh;
-        score += (int)((ph & high_bit) != 0) - (int)((mh & high_bit) != 0);
-        ph = (ph << 1) | 1u;
-        mh = mh << 1;
-        pv = (mh | ~(xv | ph)) & mask_m;
-        mv = (ph & xv) & mask_m;
+        myers_step(tbl[c], mask_m, high_bit, pv, mv, score);
       }
       out[(size_t)(g0 + q) * n_terms + t] = score;
     }
   }
 }
 
-}  // namespace
-
-// Plain C entry point (loaded with ctypes).  Launches on ``stream`` and
-// returns cudaGetLastError() of the launch: 0 on success.
-extern "C" int nxs_myers_distances(const void* vocab, const void* vlen,
-                                   const void* qbytes, const void* qlen,
-                                   void* out, int n_terms, int n_queries,
-                                   void* stream) {
+template <int kQGroup>
+int launch(const void* vocab, const void* vlen, const void* qbytes,
+           const void* qlen, void* out, int n_terms, int n_queries,
+           void* stream) {
   if (n_terms <= 0 || n_queries <= 0) return 0;
   const dim3 grid((n_terms + kThreads - 1) / kThreads);
-  myers_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  myers_kernel<kQGroup><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)vocab, (const int32_t*)vlen,
       (const uint8_t*)qbytes, (const int32_t*)qlen, (int32_t*)out,
       n_terms, n_queries);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes).  Each launches on
+// ``stream`` and returns cudaGetLastError() of the launch: 0 on success.
+extern "C" int nxs_myers_distances(const void* vocab, const void* vlen,
+                                   const void* qbytes, const void* qlen,
+                                   void* out, int n_terms, int n_queries,
+                                   void* stream) {
+  return launch<32>(vocab, vlen, qbytes, qlen, out, n_terms, n_queries,
+                    stream);
+}
+
+// One query: qbytes uint8[1, 32], qlen int32[1], out int32[1, W].
+extern "C" int nxs_myers_distances_one(const void* vocab, const void* vlen,
+                                       const void* qbytes, const void* qlen,
+                                       void* out, int n_terms,
+                                       void* stream) {
+  return launch<1>(vocab, vlen, qbytes, qlen, out, n_terms, 1, stream);
 }

@@ -12,8 +12,11 @@ Port of nxsearch_tpu/fuzzy.py.  Two execution paths, identical results:
 
 - **Device** (vocabularies >= _DEVICE_THRESHOLD): bit-parallel Myers
   edit distance over a length-sorted vocabulary snapshot on the
-  index's device (ops/levenshtein.py) -- the hand-written CUDA kernel
-  on a card, its plain torch twin on the CPU.  Terms longer than 32
+  index's device (ops/levenshtein.py) -- the hand-written CUDA kernels
+  on a card, their plain torch twins on the CPU.  The forward kernel
+  is the default; NXS_FUZZY_REV=1 selects the transposed one (the
+  ``_mode`` "rev"), as in the reference; a lookup's one-row forward
+  sweep takes the single-query kernel.  Terms longer than 32
   bytes are excluded from the snapshot; they can only match queries
   >= 31 bytes, which are scanned on the host.
 - **Host** (small vocabularies or >32-byte query tokens): length-pruned
@@ -24,6 +27,7 @@ Ties on the total count pick the lowest (oldest) term ID.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -35,6 +39,11 @@ TOLERANCE = 2
 
 _DEVICE_THRESHOLD = 4096   # below this, host DP beats a device dispatch
 _MAX_DEVICE_BYTES = 32
+# Transposed-Myers kernel (csrc/myers_rev.cu) instead of the forward
+# one: the same distances, the char table built once per block and
+# shared by every query of a launch.  Read at import, as the reference
+# reads it.
+_USE_REV_KERNEL = os.environ.get("NXS_FUZZY_REV", "0") == "1"
 # Query rows per kernel launch on a card; the CPU twin materializes
 # [rows, W] int64 planes per step, so its chunk stays small.
 _CHUNK_CUDA = 64
@@ -175,6 +184,12 @@ class FuzzyMatcher:
         hi = int(self._len_off[min(q_len + tol, _MAX_DEVICE_BYTES) + 1])
         return lo, hi - lo
 
+    @property
+    def _mode(self) -> str:
+        """Sweep mode of ops/levenshtein.fuzzy_best_region, on every
+        device (the CPU runs the mode's kernel twin)."""
+        return "rev" if _USE_REV_KERNEL else "fwd"
+
     def _pack_queries(self, qs: list[bytes]):
         qb = np.zeros((len(qs), _MAX_DEVICE_BYTES), dtype=np.uint8)
         ql = np.zeros(len(qs), dtype=np.int32)
@@ -231,6 +246,7 @@ class FuzzyMatcher:
         with phase("fuzzy.refresh_device"):
             self._refresh_device()
         chunk = _CHUNK_CUDA if self.device.type == "cuda" else _CHUNK_CPU
+        mode = self._mode
         # Group misses by their length band's sorted-row region: each
         # group sweeps only rows within tolerance of its query length.
         regions: dict[tuple[int, int], list] = {}
@@ -250,7 +266,8 @@ class FuzzyMatcher:
                     qb, ql = self._pack_queries([q for _, q in part])
                     idxs.append(fuzzy_best_region(
                         self._dev_bytes, self._dev_len, self._dev_total,
-                        self._dev_ids, qb, ql, lo, self.tolerance, W=w))
+                        self._dev_ids, qb, ql, lo, self.tolerance, W=w,
+                        mode=mode))
                     parts.append(part)
             if not idxs:
                 return
@@ -286,10 +303,12 @@ class FuzzyMatcher:
             lo, w = self._region(len(q))
             best_idx = -1
             if w:
+                # One row: in "fwd" mode the single-query kernel.
                 qb, ql = self._pack_queries([q])
                 best_idx = int(fuzzy_best_region(
                     self._dev_bytes, self._dev_len, self._dev_total,
-                    self._dev_ids, qb, ql, lo, tol, W=w)[0])
+                    self._dev_ids, qb, ql, lo, tol, W=w,
+                    mode=self._mode)[0])
             best_id = best_idx + 1 if best_idx >= 0 else None
             best_total = int(self.host.term_total.view()[best_idx]) \
                 if best_idx >= 0 else 0

@@ -4,8 +4,8 @@ Each kernel is CUDA C++ under ``csrc/``, compiled at first use by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C entry
 point, and bound with ``ctypes`` (no PyTorch headers: a build takes
 seconds).  Libraries land in ``nxsearch_tpu_torch/_build/``, named by
-a hash of their source, so an edited source rebuilds and a stale one
-is never loaded.
+a hash of their source and of the headers under ``csrc/``, so an
+edited source or header rebuilds and a stale library is never loaded.
 
 Every wrapper takes its plain PyTorch twin only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises -- it never
@@ -59,9 +59,13 @@ class CudaKernel:
         return os.path.join(CSRC_DIR, self.source)
 
     def library_path(self) -> str:
-        with open(self.source_path, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        headers = sorted(f for f in os.listdir(CSRC_DIR)
+                         if f.endswith(".cuh"))
+        for name in [self.source, *headers]:
+            with open(os.path.join(CSRC_DIR, name), "rb") as f:
+                h.update(name.encode() + b"\0" + f.read())
+        digest = h.hexdigest()[:16]
         stem = os.path.splitext(self.source)[0]
         return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 
@@ -111,11 +115,60 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 # csrc/myers.cu: replaces nxsearch_tpu/ops/pallas/fuzzy.py
-# _myers_kernel_batch (forward bit-parallel Myers, batched queries).
+# _myers_kernel_batch (forward bit-parallel Myers, batched queries) and,
+# as its single-query instantiation, _myers_kernel.
 MYERS = CudaKernel("myers.cu", "nxs_myers_distances",
                    [_P, _P, _P, _P, _P, _I, _I, _P])
+MYERS_ONE = CudaKernel("myers.cu", "nxs_myers_distances_one",
+                       [_P, _P, _P, _P, _P, _I, _P])
+# csrc/myers_rev.cu: replaces nxsearch_tpu/ops/pallas/fuzzy.py
+# _myers_rev_kernel_batch (transposed Myers: the term is the pattern).
+MYERS_REV = CudaKernel("myers_rev.cu", "nxs_myers_rev_distances",
+                       [_P, _P, _P, _P, _P, _I, _I, _P])
 
 MAX_BYTES = 32   # term / query row width of the Myers layout
+_FULL = 0xFFFFFFFF
+
+
+def _masks(length: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mask, high_bit) of a pattern length, as int64 holding u32: all
+    ones at length >= 32, and the high bit clamps the u32-wrapped
+    length - 1 to 31, so length 0 reads bit 31 (the reference's
+    arithmetic, pallas/fuzzy.py:72-76 and :210-217)."""
+    n = length.to(torch.int64)
+    mask = torch.where(n >= 32, torch.full_like(n, _FULL),
+                       (1 << n.clamp(max=31)) - 1)
+    return mask, 1 << ((n - 1) & _FULL).clamp(max=31)
+
+
+def _myers_step(eq, pv, mv, score, active, mask, high_bit):
+    """One Myers step on u32 lanes held in int64 (masked back to 32
+    bits after every operation that can leave them); lanes where
+    ``active`` is false keep their state and score."""
+    xv = eq | mv
+    xh = ((((eq & pv) + pv) & _FULL) ^ pv) | eq
+    ph = mv | (~(xh | pv) & _FULL)
+    mh = pv & xh
+    inc = ((ph & high_bit) != 0).to(torch.int32)
+    dec = ((mh & high_bit) != 0).to(torch.int32)
+    score = score + torch.where(active, inc - dec, 0)
+    ph = ((ph << 1) | 1) & _FULL
+    mh = (mh << 1) & _FULL
+    pv = torch.where(active, (mh | (~(xv | ph) & _FULL)) & mask, pv)
+    mv = torch.where(active, (ph & xv) & mask, mv)
+    return pv, mv, score
+
+
+def _peq(q_bytes: torch.Tensor, q_len: torch.Tensor) -> torch.Tensor:
+    """int64[M, 256]: bit i of entry (q, c) is set where q[i] == c and
+    i < len(q) -- each query's classic Peq table."""
+    dev = q_bytes.device
+    pos = torch.arange(MAX_BYTES, device=dev, dtype=torch.int64)
+    q_valid = pos[None, :] < q_len.to(torch.int64)[:, None]       # [M, 32]
+    hits = ((q_bytes.to(torch.int64)[:, :, None]
+             == torch.arange(256, device=dev)[None, None, :])
+            & q_valid[:, :, None])                                 # [M,32,256]
+    return (hits.to(torch.int64) << pos[None, :, None]).sum(dim=1)
 
 
 def myers_distances_ref(vocab_bytes: torch.Tensor,  # uint8[W, 32]
@@ -131,53 +184,90 @@ def myers_distances_ref(vocab_bytes: torch.Tensor,  # uint8[W, 32]
     Terms with vocab_len == 0 return len(q); rows with q_len == 0
     return the term length -- both as the reference computes them.
     """
-    dev = vocab_bytes.device
-    n_q = q_bytes.shape[0]
-    n_t = vocab_bytes.shape[0]
-    full = 0xFFFFFFFF
-    pos = torch.arange(MAX_BYTES, device=dev, dtype=torch.int64)
-    q_valid = pos[None, :] < q_len.to(torch.int64)[:, None]       # [M, 32]
-    hits = ((q_bytes.to(torch.int64)[:, :, None]
-             == torch.arange(256, device=dev)[None, None, :])
-            & q_valid[:, :, None])                                 # [M,32,256]
-    peq = (hits.to(torch.int64) << pos[None, :, None]).sum(dim=1)  # [M, 256]
-
-    m = q_len.to(torch.int64)[:, None]
-    mask_m = torch.where(m >= 32, torch.full_like(m, full),
-                         (1 << m.clamp(max=31)) - 1)
-    high_bit = 1 << ((m - 1) & full).clamp(max=31)
+    n_q, n_t = q_bytes.shape[0], vocab_bytes.shape[0]
+    peq = _peq(q_bytes, q_len)                                     # [M, 256]
+    mask_m, high_bit = (x[:, None] for x in _masks(q_len))
     pv = mask_m.expand(n_q, n_t).clone()
-    mv = torch.zeros((n_q, n_t), dtype=torch.int64, device=dev)
+    mv = torch.zeros((n_q, n_t), dtype=torch.int64, device=peq.device)
     score = q_len.to(torch.int32)[:, None].expand(n_q, n_t).clone()
     vb = vocab_bytes.to(torch.int64)
     vl = vocab_len.to(torch.int64)
     for j in range(vocab_bytes.shape[1]):
-        active = (j < vl)[None, :]
-        eq = peq[:, vb[:, j]]                                      # [M, W]
-        xv = eq | mv
-        xh = ((((eq & pv) + pv) & full) ^ pv) | eq
-        ph = mv | (~(xh | pv) & full)
-        mh = pv & xh
-        inc = ((ph & high_bit) != 0).to(torch.int32)
-        dec = ((mh & high_bit) != 0).to(torch.int32)
-        score = score + torch.where(active, inc - dec, 0)
-        ph = ((ph << 1) | 1) & full
-        mh = (mh << 1) & full
-        pv = torch.where(active, (mh | (~(xv | ph) & full)) & mask_m, pv)
-        mv = torch.where(active, (ph & xv) & mask_m, mv)
+        pv, mv, score = _myers_step(peq[:, vb[:, j]], pv, mv, score,
+                                    (j < vl)[None, :], mask_m, high_bit)
     return score
 
 
-def myers_distances(vocab_bytes: torch.Tensor, vocab_len: torch.Tensor,
-                    q_bytes: torch.Tensor, q_len: torch.Tensor
-                    ) -> torch.Tensor:
-    """int32[M, W] Myers distances: the CUDA kernel for CUDA tensors,
-    the plain twin for CPU tensors; any other device raises."""
+def myers_distances_one_ref(vocab_bytes: torch.Tensor,  # uint8[T, 32]
+                            vocab_len: torch.Tensor,    # int32[T]
+                            q_bytes: torch.Tensor,      # uint8[32]
+                            q_len) -> torch.Tensor:
+    """int32[T]: distances of ONE query to every term (plain torch).
+
+    The port of nxsearch_tpu/ops/levenshtein.py:myers_distances (one
+    query, one [T] sweep over term positions) and the twin of the
+    single-query kernel (csrc/myers.cu, nxs_myers_distances_one).  The
+    jnp function builds Peq with a [T, L, 32] compare; here the query's
+    256-entry table is built once and indexed by each term byte, which
+    gives the same bits."""
     dev = vocab_bytes.device
-    if dev.type == "cpu":
-        return myers_distances_ref(vocab_bytes, vocab_len, q_bytes, q_len)
-    if dev.type != "cuda":
-        raise RuntimeError(f"myers_distances: no kernel for device {dev}")
+    ql = torch.as_tensor(q_len, dtype=torch.int32, device=dev).reshape(1)
+    peq = _peq(q_bytes.reshape(1, MAX_BYTES), ql)[0]               # [256]
+    mask_m, high_bit = _masks(ql)
+    n_t = vocab_bytes.shape[0]
+    pv = mask_m.expand(n_t).clone()
+    mv = torch.zeros(n_t, dtype=torch.int64, device=dev)
+    score = ql.expand(n_t).clone()
+    vb = vocab_bytes.to(torch.int64)
+    vl = vocab_len.to(torch.int64)
+    for j in range(vocab_bytes.shape[1]):
+        pv, mv, score = _myers_step(peq[vb[:, j]], pv, mv, score, j < vl,
+                                    mask_m, high_bit)
+    return score
+
+
+def myers_rev_distances_ref(vocab_bytes: torch.Tensor,  # uint8[W, 32]
+                            vocab_len: torch.Tensor,    # int32[W]
+                            q_bytes: torch.Tensor,      # uint8[M, 32]
+                            q_len: torch.Tensor,        # int32[M]
+                            ) -> torch.Tensor:
+    """int32[M, W]: the same distances by transposed Myers (plain torch).
+
+    The twin of csrc/myers_rev.cu, following the arithmetic of
+    nxsearch_tpu/ops/pallas/fuzzy.py:_myers_rev_kernel_batch: the term
+    is the pattern and the query the text.  The char table (bit j of
+    entry (c, t) set where term_t[j] == c and j < n_t) is built once
+    and serves every query; each query position i < q_len reads row
+    q[i] and runs one step on per-lane masks, the score starting at the
+    term length.  Unlike the TPU kernel, bits at j >= n_t are never set
+    (the kernel does the same); they cannot reach the score, so the two
+    agree on every live lane."""
+    dev = vocab_bytes.device
+    n_q, n_t = q_bytes.shape[0], vocab_bytes.shape[0]
+    pos = torch.arange(MAX_BYTES, device=dev, dtype=torch.int64)
+    live = pos[None, :] < vocab_len.to(torch.int64)[:, None]       # [W, 32]
+    lane = torch.arange(n_t, device=dev)[:, None].expand(n_t, MAX_BYTES)
+    table = torch.zeros((256, n_t), dtype=torch.int64, device=dev)
+    # Distinct powers of two per (c, t): the accumulated sum is the OR.
+    table.index_put_((vocab_bytes.to(torch.int64)[live], lane[live]),
+                     (1 << pos).expand(n_t, MAX_BYTES)[live],
+                     accumulate=True)
+    mask_n, high_bit = (x[None, :] for x in _masks(vocab_len))
+    pv = mask_n.expand(n_q, n_t).clone()
+    mv = torch.zeros((n_q, n_t), dtype=torch.int64, device=dev)
+    score = vocab_len.to(torch.int32)[None, :].expand(n_q, n_t).clone()
+    qb = q_bytes.to(torch.int64)
+    ql = q_len.to(torch.int64)
+    for i in range(MAX_BYTES):
+        pv, mv, score = _myers_step(table[qb[:, i]], pv, mv, score,
+                                    (i < ql)[:, None], mask_n, high_bit)
+    return score
+
+
+def _check_myers_args(fn: str, vocab_bytes, vocab_len, q_bytes, q_len):
+    """Device, type, shape, contiguity and 16-byte row alignment of a
+    Myers kernel's inputs; raises ValueError."""
+    dev = vocab_bytes.device
     n_t, n_q = vocab_bytes.shape[0], q_bytes.shape[0]
     for name, t, dtype, shape in (
             ("vocab_bytes", vocab_bytes, torch.uint8, (n_t, MAX_BYTES)),
@@ -187,18 +277,65 @@ def myers_distances(vocab_bytes: torch.Tensor, vocab_len: torch.Tensor,
         if (t.device != dev or t.dtype != dtype
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(
-                f"myers_distances: {name} must be a contiguous {dtype} "
-                f"tensor of shape {shape} on {dev}, got {t.dtype} "
+                f"{fn}: {name} must be a contiguous {dtype} tensor of "
+                f"shape {shape} on {dev}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
     if vocab_bytes.data_ptr() % 16:
-        raise ValueError("myers_distances: vocab rows must be 16-byte "
-                         "aligned")
+        raise ValueError(f"{fn}: vocab rows must be 16-byte aligned")
+
+
+def myers_distances(vocab_bytes: torch.Tensor, vocab_len: torch.Tensor,
+                    q_bytes: torch.Tensor, q_len: torch.Tensor
+                    ) -> torch.Tensor:
+    """int32[M, W] Myers distances: the CUDA kernel for CUDA tensors,
+    the plain twin for CPU tensors; any other device raises.  M == 1
+    takes the single-query instantiation (MYERS_ONE) and its twin
+    myers_distances_one_ref: a choice by shape, on both devices."""
+    dev = vocab_bytes.device
+    n_t, n_q = vocab_bytes.shape[0], q_bytes.shape[0]
+    if dev.type == "cpu":
+        if n_q == 1:
+            return myers_distances_one_ref(vocab_bytes, vocab_len,
+                                           q_bytes[0], q_len)[None, :]
+        return myers_distances_ref(vocab_bytes, vocab_len, q_bytes, q_len)
+    if dev.type != "cuda":
+        raise RuntimeError(f"myers_distances: no kernel for device {dev}")
+    _check_myers_args("myers_distances", vocab_bytes, vocab_len, q_bytes,
+                      q_len)
+    out = torch.empty((n_q, n_t), dtype=torch.int32, device=dev)
+    if n_t and n_q:
+        ptrs = (vocab_bytes.data_ptr(), vocab_len.data_ptr(),
+                q_bytes.data_ptr(), q_len.data_ptr(), out.data_ptr(), n_t)
+        with torch.cuda.device(dev):
+            if n_q == 1:
+                MYERS_ONE.launch(*ptrs)
+            else:
+                MYERS.launch(*ptrs, n_q)
+    return out
+
+
+def myers_rev_distances(vocab_bytes: torch.Tensor, vocab_len: torch.Tensor,
+                        q_bytes: torch.Tensor, q_len: torch.Tensor
+                        ) -> torch.Tensor:
+    """int32[M, W] distances by transposed Myers: the CUDA kernel
+    (csrc/myers_rev.cu) for CUDA tensors, the plain twin for CPU
+    tensors; any other device raises.  Inputs as myers_distances."""
+    dev = vocab_bytes.device
+    if dev.type == "cpu":
+        return myers_rev_distances_ref(vocab_bytes, vocab_len, q_bytes,
+                                       q_len)
+    if dev.type != "cuda":
+        raise RuntimeError(
+            f"myers_rev_distances: no kernel for device {dev}")
+    _check_myers_args("myers_rev_distances", vocab_bytes, vocab_len,
+                      q_bytes, q_len)
+    n_t, n_q = vocab_bytes.shape[0], q_bytes.shape[0]
     out = torch.empty((n_q, n_t), dtype=torch.int32, device=dev)
     if n_t and n_q:
         with torch.cuda.device(dev):
-            MYERS.launch(vocab_bytes.data_ptr(), vocab_len.data_ptr(),
-                         q_bytes.data_ptr(), q_len.data_ptr(),
-                         out.data_ptr(), n_t, n_q)
+            MYERS_REV.launch(vocab_bytes.data_ptr(), vocab_len.data_ptr(),
+                             q_bytes.data_ptr(), q_len.data_ptr(),
+                             out.data_ptr(), n_t, n_q)
     return out
 
 

@@ -1,0 +1,56 @@
+"""chip_smoke.py's host-side helpers that run without a card: the SASS
+instruction count behind the Myers kernels' bound, and the bound."""
+
+import pytest
+import torch
+
+import chip_smoke
+
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _Z5probeILi9EEvPKjPj
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/  LDC R1, c[0x0][0x28] ;  /* 0x00000a00ff017b82 */
+                  /* 0x000fe20000000800 */
+        /*0010*/  S2R R0, SR_TID.X ;  /* 0x0000000000007919 */
+        /*0020*/  ULDC.64 UR4, c[0x0][0x208] ;  /* 0x0000820000047ab9 */
+        /*0030*/  IMAD.WIDE.U32 R2, R0, 0x40, R2 ;  /* 0x0000004000027825 */
+        /*0040*/  LDG.E R5, desc[UR4][R2.64] ;  /* 0x0000000402057981 */
+        /*0050*/  LOP3.LUT R7, R5, R6, RZ, 0xc0, !PT ;  /* 0x000000060507 */
+        /*0060*/  @!P0 IADD3 R7, R7, 0x1, RZ ;  /* 0x0000000107078810 */
+        /*0070*/  LEA R8, R7, 0x1, 0x1 ;  /* 0x0000000107087811 */
+        /*0080*/  STG.E desc[UR4][R2.64], R8 ;  /* 0x0000000802007986 */
+        /*0090*/  EXIT ;  /* 0x000000000000794d */
+        /*00a0*/  BRA 0xa0;  /* 0xfffffffc00fc7947 */
+\t\t..........
+
+\t\tFunction : _Z5probeILi1EEvPKjPj
+        /*0000*/  LDC R1, c[0x0][0x28] ;  /* 0x00000a00ff017b82 */
+        /*0010*/  LOP3.LUT R7, R5, R6, RZ, 0xc0, !PT ;  /* 0x000000060507 */
+        /*0020*/  NOP;  /* 0x0000000000007918 */
+        /*0030*/  EXIT ;  /* 0x000000000000794d */
+"""
+
+
+def test_sass_alu_counts_per_function():
+    # Memory, control, special-register and uniform ops are not counted;
+    # predicated ops are; encoding-only lines are skipped.
+    assert chip_smoke.sass_alu_counts(SASS) == {
+        "_Z5probeILi9EEvPKjPj": 4, "_Z5probeILi1EEvPKjPj": 1}
+
+
+@pytest.mark.parametrize("rev", [False, True])
+def test_myers_ops_counts_the_swept_lengths(rev):
+    vl = torch.tensor([6, 7, 40], dtype=torch.int32)   # 40 sweeps 32
+    ql = torch.tensor([0, 8], dtype=torch.int32)
+    steps = 3 * (0 + 8) if rev else 2 * (6 + 7 + 32)
+    assert chip_smoke.myers_ops(vl, ql, rev, 15.0) == 15.0 * steps
+
+
+def test_bound_takes_the_larger_time():
+    by_ops = chip_smoke.bound(3.35e9, 1.0e12, 1.0e13)      # 1 ms vs 100 ms
+    assert by_ops == {"bound_ms": pytest.approx(100.0),
+                      "bound_by": "operations"}
+    by_bytes = chip_smoke.bound(3.35e12, 1.0, 1.0e13)
+    assert by_bytes == {"bound_ms": pytest.approx(1000.0),
+                        "bound_by": "bytes"}

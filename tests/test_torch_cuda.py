@@ -47,16 +47,83 @@ def _myers_inputs(seed, n_terms, n_queries, alphabet=b"abcdefgh"):
 @pytest.mark.parametrize("n_terms,n_queries",
                          [(200_000, 64), (1000, 1), (4099, 70)])
 def test_myers_kernel_matches_twin(n_terms, n_queries):
-    """Exact equality at the main path's shape, at M = 1, and at a ragged
-    W with more queries than one shared-memory group holds."""
+    """Exact equality at the main path's shape, at M = 1 (the
+    single-query instantiation), and at a ragged W with more queries
+    than one shared-memory group holds."""
     _need_card()
     args = _myers_inputs(n_terms + n_queries, n_terms, n_queries)
-    before = kernels.MYERS.launches
+    kernel = kernels.MYERS_ONE if n_queries == 1 else kernels.MYERS
+    before = kernel.launches
     got = kernels.myers_distances(*args)
     want = kernels.myers_distances_ref(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert kernels.MYERS.launches == before + 1
+    assert kernel.launches == before + 1
+
+
+@pytest.mark.parametrize("n_terms", [200_000, 1000, 1, 33])
+def test_single_query_kernel_matches_plain_version(n_terms):
+    """The single-query entry (the wrapper at M = 1) against the plain
+    single-query sweep, for each query of a set that holds a 32-byte and
+    a q_len 0 row; W = 1 and 33 leave most of a block's threads dead."""
+    _need_card()
+    vb, vl, qb, ql = _myers_inputs(n_terms, n_terms, 5)
+    for i in range(5):
+        before = (kernels.MYERS.launches, kernels.MYERS_ONE.launches)
+        got = kernels.myers_distances(vb, vl, qb[i: i + 1], ql[i: i + 1])
+        want = kernels.myers_distances_one_ref(vb, vl, qb[i], ql[i])
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want)
+        assert (kernels.MYERS.launches, kernels.MYERS_ONE.launches) == \
+            (before[0], before[1] + 1)
+
+
+@pytest.mark.parametrize("n_terms,n_queries", [
+    (200_000, 64),     # the main path's chunk
+    (4099, 70),        # W not a multiple of the block, M > one group
+    (65, 129),         # two full query groups and one more row
+    (1000, 1),         # a lookup in rev mode
+    (1, 3),            # one live thread in the only block
+])
+def test_myers_rev_kernel_matches_twin_and_forward(n_terms, n_queries):
+    """The transposed kernel equals its twin on every lane (n = 0 and
+    n = 32 terms, q_len 0 and 32-byte rows included) and equals the
+    forward kernel."""
+    _need_card()
+    args = _myers_inputs(n_terms * 7 + n_queries, n_terms, n_queries)
+    args[1][-1:] = 32                      # a 32-byte term (bytes: any)
+    before = kernels.MYERS_REV.launches
+    got = kernels.myers_rev_distances(*args)
+    want = kernels.myers_rev_distances_ref(*args)
+    fwd = kernels.myers_distances(*args)
+    torch.cuda.synchronize()
+    assert kernels.MYERS_REV.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, fwd)
+
+
+def test_myers_rev_kernel_full_byte_range():
+    _need_card()
+    args = _myers_inputs(10, 5000, 40, alphabet=bytes(range(1, 256)))
+    got = kernels.myers_rev_distances(*args)
+    assert torch.equal(got, kernels.myers_rev_distances_ref(*args))
+    assert torch.equal(got, kernels.myers_distances(*args))
+
+
+def test_myers_rev_wrapper_rejects_bad_inputs():
+    _need_card()
+    vb, vl, qb, ql = _myers_inputs(2, 64, 4)
+    with pytest.raises(ValueError, match="vocab_len"):
+        kernels.myers_rev_distances(vb, vl.long(), qb, ql)
+    with pytest.raises(ValueError, match="q_bytes"):
+        kernels.myers_rev_distances(vb, vl, qb.cpu(), ql)
+    with pytest.raises(ValueError, match="q_len"):
+        kernels.myers_rev_distances(vb, vl, qb, ql[:3])
+    with pytest.raises(ValueError, match="vocab_bytes"):
+        kernels.myers_rev_distances(vb[:, :16], vl, qb, ql)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flat = torch.zeros(64 * 32 + 8, dtype=torch.uint8, device="cuda")
+        kernels.myers_rev_distances(flat[8:].view(64, 32), vl, qb, ql)
 
 
 def test_myers_kernel_full_byte_range():
@@ -121,6 +188,45 @@ def test_port_on_card_matches_port_on_cpu(tmp_path):
     want = idx_c.search_many(queries, Params().set_uint("limit", 11))
     assert kernels.MYERS.launches > before
     for q, w, g in zip(queries, want, got):
+        _assert_same(w, g, q)
+    gpu.close()
+    cpu.close()
+
+
+def test_fuzzy_rev_on_card_matches_cpu(tmp_path, monkeypatch):
+    """With the rev flag on, fuzzy search_many and search on the card
+    (the transposed kernel; at M = 1 as well) answer as the port on the
+    CPU, and no forward kernel launches."""
+    _need_card()
+    import bench
+    from nxsearch_tpu_torch import Nxs, Params
+    from nxsearch_tpu_torch import fuzzy as pfuzzy
+
+    monkeypatch.setattr(pfuzzy, "_USE_REV_KERNEL", True)
+    vocab = 6000
+    cpu = Nxs(str(tmp_path), device="cpu")
+    idx_c = cpu.index_create("t")
+    idx_c.add_many(bench.zipf_range(0, 3000, vocab, 20))
+    gpu = Nxs(str(tmp_path), device="cuda")
+    idx_g = gpu.index_open("t")
+    words = np.array([f"w{i:05d}" for i in range(vocab)])
+    probs = 1.0 / (np.arange(vocab) + 10.0)
+    probs /= probs.sum()
+    rng = np.random.default_rng(2)
+    many = (bench.make_queries(60, words, probs, rng)
+            + bench.make_fuzzy_queries(90, words, probs, rng, "r"))
+    single = bench.make_fuzzy_queries(12, words, probs, rng, "s")
+    fwd = (kernels.MYERS.launches, kernels.MYERS_ONE.launches)
+    rev = kernels.MYERS_REV.launches
+    got = idx_g.search_many(many, Params().set_uint("limit", 10))
+    got += [idx_g.search(q, Params().set_uint("limit", 10))
+            for q in single]
+    assert kernels.MYERS_REV.launches > rev
+    assert (kernels.MYERS.launches, kernels.MYERS_ONE.launches) == fwd
+    want = idx_c.search_many(many, Params().set_uint("limit", 11))
+    want += [idx_c.search(q, Params().set_uint("limit", 11))
+             for q in single]
+    for q, w, g in zip(many + single, want, got):
         _assert_same(w, g, q)
     gpu.close()
     cpu.close()

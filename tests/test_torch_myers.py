@@ -125,7 +125,8 @@ def test_fuzzy_best_region_matches_reference(seed, lo, w):
     got = port_lev.fuzzy_best_region(
         torch.from_numpy(vb), torch.from_numpy(vl),
         torch.from_numpy(totals), torch.from_numpy(ids),
-        torch.from_numpy(qb), torch.from_numpy(ql), lo, 2, W=w).numpy()
+        torch.from_numpy(qb), torch.from_numpy(ql), lo, 2, W=w,
+        mode="fwd").numpy()
     np.testing.assert_array_equal(got, want)
     assert (got >= 0).any()
 

@@ -131,20 +131,21 @@ def assert_same(ref, got, query=""):
 
 @pytest.fixture
 def traced(monkeypatch):
-    """Record the port's Myers twin runs and sliced group flags."""
+    """Record the port's forward Myers twin runs (batched and
+    single-query) and sliced group flags."""
     seen = {"myers": 0, "use_rows": 0}
-    ref_twin = kernels.myers_distances_ref
     ref_sliced = pexec.sliced_topk_packed
 
-    def twin(*a, **kw):
-        seen["myers"] += 1
-        return ref_twin(*a, **kw)
+    for name in ("myers_distances_ref", "myers_distances_one_ref"):
+        def twin(*a, _fn=getattr(kernels, name), **kw):
+            seen["myers"] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(kernels, name, twin)
 
     def sliced(*a, **kw):
         seen["use_rows"] += bool(kw.get("use_rows"))
         return ref_sliced(*a, **kw)
 
-    monkeypatch.setattr(kernels, "myers_distances_ref", twin)
     monkeypatch.setattr(pexec, "sliced_topk_packed", sliced)
     psearch.EXEC_STATS.clear()
     return seen
@@ -183,6 +184,33 @@ def test_search_pipelined_matches_reference(pair):
     for b_q, b_r, b_g in zip(batches, want, got):
         for q, r, g in zip(b_q, b_r, b_g):
             assert_same(r, g, q)
+
+
+def test_fuzzy_rev_matches_reference(pair, monkeypatch):
+    """NXS_FUZZY_REV=1's flag on in the port: typos resolved by the
+    transposed sweep (its twin on the CPU), through search_many and
+    search, answer like nxsearch_tpu; no forward sweep runs."""
+    from nxsearch_tpu_torch import fuzzy as pfuzzy
+    jidx, pidx = pair
+    monkeypatch.setattr(pfuzzy, "_USE_REV_KERNEL", True)
+    runs = {"fwd": 0, "rev": 0}
+    for key, name in (("fwd", "myers_distances_ref"),
+                      ("fwd", "myers_distances_one_ref"),
+                      ("rev", "myers_rev_distances_ref")):
+        def counted(*a, _fn=getattr(kernels, name), _key=key, **kw):
+            runs[_key] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(kernels, name, counted)
+    queries = _queries(5, 40, 60, "r")
+    want = jidx.search_many(queries, REF)
+    got = pidx.search_many(queries, PORT)
+    for q, r, g in zip(queries, want, got):
+        assert_same(r, g, q)
+    after_many = runs["rev"]
+    for q in _queries(6, 4, 6, "s"):
+        assert_same(jidx.search(q, REF), pidx.search(q, PORT), q)
+    assert after_many > 0 and runs["rev"] > after_many
+    assert runs["fwd"] == 0
 
 
 def _assert_routes(hybrid):
