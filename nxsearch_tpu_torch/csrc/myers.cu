@@ -1,12 +1,13 @@
-// Bit-parallel Myers edit distance of M query tokens to W vocabulary
-// terms, one thread per term.  Hopper (sm_90a) port of the Pallas
-// kernels nxsearch_tpu/ops/pallas/fuzzy.py:_myers_kernel_batch (entry
-// nxs_myers_distances; plain PyTorch twin
-// ops/kernels.py:myers_distances_ref) and _myers_kernel, the same body
-// for one query (entry nxs_myers_distances_one; twin
-// myers_distances_one_ref).  Kernel and twins agree bit for bit
+// Bit-parallel Myers edit distance of query tokens to W vocabulary
+// terms, one thread per term.  Hopper (sm_90a) port of two Pallas
+// kernels of nxsearch_tpu/ops/pallas/fuzzy.py: _myers_kernel_batch
+// (M queries: myers_kernel, entry nxs_myers_distances; plain PyTorch
+// twin ops/kernels.py:myers_distances_ref) and _myers_kernel (one
+// query: myers_one_kernel, entry nxs_myers_distances_one; twin
+// myers_distances_one_ref).  Kernels and twins agree bit for bit
 // (distances are exact integers).
 //
+// Batched kernel.
 // What bounds it.  Each (query, term) pair costs len(term) Myers steps
 // (csrc/myers_step.cuh: 17 integer instructions with nvcc 12.9, the
 // count chip_smoke.py reads from the step's SASS) plus one shared-memory
@@ -32,12 +33,37 @@
 // - Queries are processed in groups of kQGroup whose tables fit shared
 //   memory (32 KB); each output row is stored coalesced across the
 //   block's threads.
-// - The single-query entry instantiates the same kernel with
-//   kQGroup = 1: its tables take 1.3 KB of shared memory instead of
-//   33 KB.  Registers still hold both instantiations to four blocks
-//   per SM (nvcc -Xptxas -v for sm_90a: 64 registers, no spills; the
-//   batched one 62), and chip_smoke.py times the two at M = 1 in
-//   turns: on the H100 they take the same time within a few percent.
+//
+// Single-query kernel.
+// What bounds it.  One query over W terms is a stream: 36 B read and
+// 4 B written per term (8 MB at W = 200,000, 0.0024 ms at 3.35 TB/s;
+// a row is one 32-byte sector, so reading only a short term's bytes
+// would move no fewer) against a handful of steps, so bytes and the
+// launch's fixed cost bound it, not operations: an empty kernel
+// launched back to back takes about 0.002 ms on the H100.  Its first
+// port, the batched body at one query, launched 782 blocks at four
+// blocks per SM (64 registers): 1.48 waves, each thread one load round
+// trip, a few steps and a store, with two barriers per block in front
+// of the table.
+// What the design does about it.
+// - One thread per term, 256 terms a block, a grid of ceil(W / 256).
+//   __launch_bounds__(kOneThreads, 6) caps registers at 40 (nvcc
+//   -Xptxas -v for sm_90a: 24, no spills, 8 KB of shared memory), so
+//   eight blocks (64 warps, the SM's limit) fit an SM and the 782
+//   blocks of W = 200,000 are one wave on 132 SMs; no lookup band is
+//   wider.  An earlier form of this kernel (a one-wave grid-stride loop
+//   with the next term's loads in flight) gained nothing measurable,
+//   and tools/myers_variants.py timed its blocks of 128 to 1024 threads
+//   within 10 % of each other (PERF.md).
+// - The term's two 16-byte loads and its length load are issued before
+//   the table build, so their round trip overlaps it.
+// - The 256-entry Peq table is built by each warp for itself (8 KB a
+//   block), behind no block barrier: the warp zeroes its copy, lane i
+//   reads query byte i, __match_any_sync gives each lane the set of
+//   lanes holding its byte -- that byte's Peq entry -- and the lanes
+//   write their entries; two __syncwarp()s order it.  Every thread
+//   building all 256 entries from the whole query would cost 32 byte
+//   loads and about 100 instructions a thread in front of the steps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,9 +74,10 @@ namespace {
 
 constexpr int kThreads = 256;   // terms per block
 constexpr int kWidth = 32;      // bytes per term / query row
+constexpr int kQGroup = 32;     // queries whose Peq tables share smem
+constexpr int kOneThreads = 256;  // single-query kernel: terms per block
+constexpr int kOneBlocksPerSm = 6;
 
-// kQGroup: queries whose Peq tables share smem (32 batched, 1 single).
-template <int kQGroup>
 __global__ void __launch_bounds__(kThreads)
 myers_kernel(const uint8_t* __restrict__ vocab,    // [W, 32] row-major
              const int32_t* __restrict__ vlen,     // [W]
@@ -128,29 +155,77 @@ myers_kernel(const uint8_t* __restrict__ vocab,    // [W, 32] row-major
   }
 }
 
-template <int kQGroup>
-int launch(const void* vocab, const void* vlen, const void* qbytes,
-           const void* qlen, void* out, int n_terms, int n_queries,
-           void* stream) {
-  if (n_terms <= 0 || n_queries <= 0) return 0;
-  const dim3 grid((n_terms + kThreads - 1) / kThreads);
-  myers_kernel<kQGroup><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)vocab, (const int32_t*)vlen,
-      (const uint8_t*)qbytes, (const int32_t*)qlen, (int32_t*)out,
-      n_terms, n_queries);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(kOneThreads, kOneBlocksPerSm)
+myers_one_kernel(const uint8_t* __restrict__ vocab,    // [W, 32] row-major
+                 const int32_t* __restrict__ vlen,     // [W]
+                 const uint8_t* __restrict__ qbytes,   // [32]
+                 const int32_t* __restrict__ qlen,     // [1]
+                 int32_t* __restrict__ out,            // [W]
+                 int n_terms) {
+  // Each warp's own copy of the query's Peq table, built and read by
+  // that warp alone: no block barrier.
+  __shared__ uint32_t peq[kOneThreads / 32][256];
+  const int lane = threadIdx.x & 31;
+  uint32_t* tbl = peq[threadIdx.x >> 5];
+  const int t = blockIdx.x * kOneThreads + threadIdx.x;
+  const bool live = t < n_terms;
+
+  // The term's bytes: two 16-byte loads (rows are 32-byte aligned).
+  uint4 a = make_uint4(0, 0, 0, 0);
+  uint4 b = a;
+  int n = 0;
+  if (live) {
+    const uint4* row = reinterpret_cast<const uint4*>(vocab) + 2 * (size_t)t;
+    a = row[0];
+    b = row[1];
+    n = vlen[t];
+  }
+
+  const int m = qlen[0];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) tbl[lane + 32 * k] = 0;
+  // Lane i holds query byte i (i < len(q); other lanes a key of their
+  // own): the lanes holding one byte value find each other, and that
+  // lane set is the value's Peq entry.  Dead lanes take part too.
+  const uint32_t key = lane < m ? (uint32_t)qbytes[lane] : 256u + lane;
+  const uint32_t same = __match_any_sync(0xFFFFFFFFu, key);
+  __syncwarp();
+  if (lane < m) tbl[key] = same;
+  __syncwarp();
+  if (!live) return;
+
+  // Masks exactly as the batched kernel's.
+  const uint32_t mu = (uint32_t)m;
+  const uint32_t mask_m = m >= 32 ? 0xFFFFFFFFu : (1u << mu) - 1u;
+  const uint32_t high_bit = 1u << min(mu - 1u, 31u);
+  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t pv = mask_m;
+  uint32_t mv = 0;
+  int score = m;
+#pragma unroll
+  for (int j = 0; j < kWidth; ++j) {
+    if (j >= n) break;   // past the term's end the state is frozen
+    const uint32_t c = (w[j >> 2] >> (8 * (j & 3))) & 0xFFu;
+    myers_step(tbl[c], mask_m, high_bit, pv, mv, score);
+  }
+  out[t] = score;
 }
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  Each launches on
-// ``stream`` and returns cudaGetLastError() of the launch: 0 on success.
+// ``stream`` and returns the first CUDA error: 0 on success.
 extern "C" int nxs_myers_distances(const void* vocab, const void* vlen,
                                    const void* qbytes, const void* qlen,
                                    void* out, int n_terms, int n_queries,
                                    void* stream) {
-  return launch<32>(vocab, vlen, qbytes, qlen, out, n_terms, n_queries,
-                    stream);
+  if (n_terms <= 0 || n_queries <= 0) return 0;
+  const dim3 grid((n_terms + kThreads - 1) / kThreads);
+  myers_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)vocab, (const int32_t*)vlen,
+      (const uint8_t*)qbytes, (const int32_t*)qlen, (int32_t*)out,
+      n_terms, n_queries);
+  return (int)cudaGetLastError();
 }
 
 // One query: qbytes uint8[1, 32], qlen int32[1], out int32[1, W].
@@ -158,5 +233,11 @@ extern "C" int nxs_myers_distances_one(const void* vocab, const void* vlen,
                                        const void* qbytes, const void* qlen,
                                        void* out, int n_terms,
                                        void* stream) {
-  return launch<1>(vocab, vlen, qbytes, qlen, out, n_terms, 1, stream);
+  if (n_terms <= 0) return 0;
+  const dim3 grid((n_terms + kOneThreads - 1) / kOneThreads);
+  myers_one_kernel<<<grid, kOneThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)vocab, (const int32_t*)vlen,
+      (const uint8_t*)qbytes, (const int32_t*)qlen, (int32_t*)out,
+      n_terms);
+  return (int)cudaGetLastError();
 }

@@ -116,7 +116,7 @@ _I = ctypes.c_int
 
 # csrc/myers.cu: replaces nxsearch_tpu/ops/pallas/fuzzy.py
 # _myers_kernel_batch (forward bit-parallel Myers, batched queries) and,
-# as its single-query instantiation, _myers_kernel.
+# with its single-query kernel, _myers_kernel.
 MYERS = CudaKernel("myers.cu", "nxs_myers_distances",
                    [_P, _P, _P, _P, _P, _I, _I, _P])
 MYERS_ONE = CudaKernel("myers.cu", "nxs_myers_distances_one",
@@ -127,6 +127,11 @@ MYERS_REV = CudaKernel("myers_rev.cu", "nxs_myers_rev_distances",
                        [_P, _P, _P, _P, _P, _I, _I, _P])
 
 MAX_BYTES = 32   # term / query row width of the Myers layout
+# csrc/myers_rev.cu's kChunk and kSigma: the transposed kernel groups
+# its queries REV_CHUNK at a time into groups whose alphabets' union
+# holds at most REV_SIGMA bytes (the rows of its char table).
+REV_CHUNK = 32
+REV_SIGMA = 32
 _FULL = 0xFFFFFFFF
 
 
@@ -206,7 +211,7 @@ def myers_distances_one_ref(vocab_bytes: torch.Tensor,  # uint8[T, 32]
 
     The port of nxsearch_tpu/ops/levenshtein.py:myers_distances (one
     query, one [T] sweep over term positions) and the twin of the
-    single-query kernel (csrc/myers.cu, nxs_myers_distances_one).  The
+    single-query kernel (csrc/myers.cu, myers_one_kernel).  The
     jnp function builds Peq with a [T, L, 32] compare; here the query's
     256-entry table is built once and indexed by each term byte, which
     gives the same bits."""
@@ -226,6 +231,49 @@ def myers_distances_one_ref(vocab_bytes: torch.Tensor,  # uint8[T, 32]
     return score
 
 
+def rev_query_groups_ref(q_bytes: torch.Tensor,   # uint8[M, 32]
+                         q_len: torch.Tensor,     # int32[M]
+                         ) -> tuple[torch.Tensor, list, torch.Tensor]:
+    """The transposed kernel's query grouping (plain torch; the mirror
+    of csrc/myers_rev.cu's staging).
+
+    A query's alphabet is the set of bytes its steps read (positions
+    i < min(max(q_len, 0), 32)).  Queries are taken REV_CHUNK at a time
+    and in order; each chunk opens a group, and a query joins the open
+    group unless the union of their alphabets would exceed REV_SIGMA
+    bytes, when it opens the next one.  Returns (group int64[M], each
+    query's group, numbered across chunks; alphabets, per group the
+    ascending int64 tensor of its bytes; rank int64[M, 32], each read
+    byte's index in its group's alphabet, -1 where no step reads)."""
+    dev = q_bytes.device
+    n_q = q_bytes.shape[0]
+    pos = torch.arange(MAX_BYTES, device=dev)
+    read = pos[None, :] < q_len.to(torch.int64).clamp(0, MAX_BYTES)[:, None]
+    qb = q_bytes.to(torch.int64)
+    row = torch.arange(n_q, device=dev)[:, None].expand(n_q, MAX_BYTES)
+    present = torch.zeros((n_q, 256), dtype=torch.bool, device=dev)
+    present[row[read], qb[read]] = True
+    sets = present.cpu()
+    group, alphabets = [], []
+    for c0 in range(0, n_q, REV_CHUNK):
+        union = torch.zeros(256, dtype=torch.bool)
+        for q in range(c0, min(c0 + REV_CHUNK, n_q)):
+            merged = union | sets[q]
+            if int(merged.sum()) > REV_SIGMA:
+                alphabets.append(union.nonzero()[:, 0].to(dev))
+                merged = sets[q]
+            union = merged
+            group.append(len(alphabets))
+        alphabets.append(union.nonzero()[:, 0].to(dev))
+    lut = torch.full((max(len(alphabets), 1), 256), -1, dtype=torch.int64,
+                     device=dev)
+    for g, alphabet in enumerate(alphabets):
+        lut[g, alphabet] = torch.arange(len(alphabet), device=dev)
+    group_t = torch.tensor(group, dtype=torch.int64, device=dev)
+    rank = torch.where(read, lut[group_t[:, None], qb], -1)
+    return group_t, alphabets, rank
+
+
 def myers_rev_distances_ref(vocab_bytes: torch.Tensor,  # uint8[W, 32]
                             vocab_len: torch.Tensor,    # int32[W]
                             q_bytes: torch.Tensor,      # uint8[M, 32]
@@ -237,11 +285,14 @@ def myers_rev_distances_ref(vocab_bytes: torch.Tensor,  # uint8[W, 32]
     nxsearch_tpu/ops/pallas/fuzzy.py:_myers_rev_kernel_batch: the term
     is the pattern and the query the text.  The char table (bit j of
     entry (c, t) set where term_t[j] == c and j < n_t) is built once
-    and serves every query; each query position i < q_len reads row
-    q[i] and runs one step on per-lane masks, the score starting at the
-    term length.  Unlike the TPU kernel, bits at j >= n_t are never set
-    (the kernel does the same); they cannot reach the score, so the two
-    agree on every live lane."""
+    over all 256 byte values and serves every query; each query
+    position i < q_len reads row q[i] and runs one step on per-lane
+    masks, the score starting at the term length.  (The kernel holds
+    only the rows of a query group's bytes, rev_query_groups_ref; the
+    rows it leaves out are never read, so the distances are the same.)
+    Unlike the TPU kernel, bits at j >= n_t are never set (the kernel
+    does the same); they cannot reach the score, so the two agree on
+    every live lane."""
     dev = vocab_bytes.device
     n_q, n_t = q_bytes.shape[0], vocab_bytes.shape[0]
     pos = torch.arange(MAX_BYTES, device=dev, dtype=torch.int64)
@@ -289,7 +340,7 @@ def myers_distances(vocab_bytes: torch.Tensor, vocab_len: torch.Tensor,
                     ) -> torch.Tensor:
     """int32[M, W] Myers distances: the CUDA kernel for CUDA tensors,
     the plain twin for CPU tensors; any other device raises.  M == 1
-    takes the single-query instantiation (MYERS_ONE) and its twin
+    takes the single-query kernel (MYERS_ONE) and its twin
     myers_distances_one_ref: a choice by shape, on both devices."""
     dev = vocab_bytes.device
     n_t, n_q = vocab_bytes.shape[0], q_bytes.shape[0]

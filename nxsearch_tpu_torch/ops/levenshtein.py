@@ -5,8 +5,8 @@ triangle inequality (src/algo/bktree.c:219, src/algo/levdist.c:67);
 nxsearch_tpu replaced it with a brute-force bit-parallel Myers sweep
 over a length-sorted vocabulary (nxsearch_tpu/ops/levenshtein.py).
 This module is the same sweep in PyTorch: the distances come from the
-hand-written CUDA kernels (ops/kernels.py: csrc/myers.cu forward, its
-single-query instantiation, csrc/myers_rev.cu transposed) on the card
+hand-written CUDA kernels (ops/kernels.py: csrc/myers.cu forward and
+single-query, csrc/myers_rev.cu transposed) on the card
 and from their plain twins on the CPU; the selection stays torch ops.
 
 Every function takes the row-major uint8[T, 32] vocabulary where its
@@ -93,7 +93,7 @@ def fuzzy_best_region(vocab: torch.Tensor,       # uint8[T, 32]
     [lo, lo + W) of the length-sorted snapshot (fuzzy.py).
 
     ``mode`` "fwd" sweeps with myers_distances (the forward kernel; at
-    M == 1 its single-query instantiation), "rev" with
+    M == 1 its single-query kernel), "rev" with
     myers_rev_distances (the transposed kernel).  The reference's "jnp"
     mode has no counterpart: on the CPU each mode runs its own kernel's
     twin.  Sweeping a SUPERSET of the query's length band is always

@@ -32,6 +32,27 @@ SASS = """
 """
 
 
+PTXAS = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z3revPKhPi' for 'sm_90a'
+ptxas info    : Function properties for _Z3revPKhPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 35272 bytes smem, \
+400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z3onePKhPi' for 'sm_90a'
+ptxas info    : Function properties for _Z3onePKhPi
+    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 38 registers, 384 bytes cmem[0]
+"""
+
+
+def test_parse_ptxas_per_function():
+    assert chip_smoke.parse_ptxas(PTXAS) == {
+        "_Z3revPKhPi": {"registers": 40, "smem_bytes": 35272,
+                        "spill_stores": 0, "spill_loads": 0},
+        "_Z3onePKhPi": {"registers": 38, "smem_bytes": 0,
+                        "spill_stores": 12, "spill_loads": 8}}
+
+
 def test_sass_alu_counts_per_function():
     # Memory, control, special-register and uniform ops are not counted;
     # predicated ops are; encoding-only lines are skipped.
@@ -54,3 +75,49 @@ def test_bound_takes_the_larger_time():
     by_bytes = chip_smoke.bound(3.35e12, 1.0, 1.0e13)
     assert by_bytes == {"bound_ms": pytest.approx(1000.0),
                         "bound_by": "bytes"}
+
+
+def _variants():
+    """tools/myers_variants.py, loaded from its path (sys.path is left
+    as it is)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(chip_smoke.__file__), "tools",
+                        "myers_variants.py")
+    spec = importlib.util.spec_from_file_location("myers_variants", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_myers_variants_parse_specs():
+    mv = _variants()
+    assert mv.parse_variant("kChains=4,kSigma=64") == {"kChains": "4",
+                                                       "kSigma": "64"}
+    for bad in ("chains=4", "kChains=four", "kChains"):
+        with pytest.raises(SystemExit):
+            mv.parse_variant(bad)
+
+
+SOURCE = """constexpr int kTerms = 256;       // terms per block
+constexpr int kTermsPerWarp = kTerms / 8;
+constexpr int kSigma = 32;
+__global__ void __launch_bounds__(kTerms, kBlocks) k() {}
+"""
+
+
+@pytest.mark.parametrize("source,name", [("a.cu", "kTerms"),
+                                         ("b.cu", "kTermsPerWarp"),
+                                         ("c.cu", "kSigma")])
+def test_myers_variants_change_one_declaration(source, name):
+    """Only the named declaration changes (not one whose name it
+    prefixes, nor a use), and an undeclared name exits."""
+    mv = _variants()
+    out = mv.apply_changes(SOURCE, {name: "7"}, source)
+    assert f"constexpr int {name} = 7;" in out
+    changed = [(a, b) for a, b in zip(SOURCE.splitlines(), out.splitlines())
+               if a != b]
+    assert len(changed) == 1 and f"int {name} =" in changed[0][0]
+    with pytest.raises(SystemExit):
+        mv.apply_changes(SOURCE, {"kNoSuchConstant": "1"}, source)

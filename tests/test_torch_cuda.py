@@ -48,8 +48,8 @@ def _myers_inputs(seed, n_terms, n_queries, alphabet=b"abcdefgh"):
                          [(200_000, 64), (1000, 1), (4099, 70)])
 def test_myers_kernel_matches_twin(n_terms, n_queries):
     """Exact equality at the main path's shape, at M = 1 (the
-    single-query instantiation), and at a ragged W with more queries
-    than one shared-memory group holds."""
+    single-query kernel), and at a ragged W with more queries than one
+    shared-memory group holds."""
     _need_card()
     args = _myers_inputs(n_terms + n_queries, n_terms, n_queries)
     kernel = kernels.MYERS_ONE if n_queries == 1 else kernels.MYERS
@@ -61,11 +61,14 @@ def test_myers_kernel_matches_twin(n_terms, n_queries):
     assert kernel.launches == before + 1
 
 
-@pytest.mark.parametrize("n_terms", [200_000, 1000, 1, 33])
+# 1,000,003 terms: more blocks than one wave holds, and no multiple of
+# the 256-term block.
+@pytest.mark.parametrize("n_terms", [200_000, 1000, 1, 33, 257, 1_000_003])
 def test_single_query_kernel_matches_plain_version(n_terms):
     """The single-query entry (the wrapper at M = 1) against the plain
     single-query sweep, for each query of a set that holds a 32-byte and
-    a q_len 0 row; W = 1 and 33 leave most of a block's threads dead."""
+    a q_len 0 row; W = 1 and 33 leave most of a block's threads dead,
+    257 one term in a second block."""
     _need_card()
     vb, vl, qb, ql = _myers_inputs(n_terms, n_terms, 5)
     for i in range(5):
@@ -100,6 +103,41 @@ def test_myers_rev_kernel_matches_twin_and_forward(n_terms, n_queries):
     assert kernels.MYERS_REV.launches == before + 1
     assert torch.equal(got, want)
     assert torch.equal(got, fwd)
+
+
+def test_single_query_kernel_full_byte_range():
+    _need_card()
+    vb, vl, qb, ql = _myers_inputs(11, 4099, 5, alphabet=bytes(range(256)))
+    for i in range(5):
+        got = kernels.myers_distances(vb, vl, qb[i: i + 1], ql[i: i + 1])
+        assert torch.equal(got[0], kernels.myers_distances_one_ref(
+            vb, vl, qb[i], ql[i]))
+
+
+@pytest.mark.parametrize("n_terms,n_queries", [
+    (200_000, 64), (33, 64), (1, 64), (200_000, 1), (33, 1), (1, 1)])
+def test_myers_rev_kernel_groups_full_byte_range(n_terms, n_queries):
+    """Queries of 1-32 bytes over all 256 values hold more distinct
+    bytes than the kernel's 32-row table: at M = 64 they take several
+    groups per chunk.  Equal to the twin and to the forward kernel on
+    every lane, at the main path's W, at one term and at a W of one
+    block and a term, and at M = 1."""
+    _need_card()
+    args = _myers_inputs(n_terms + 3 * n_queries, n_terms, n_queries,
+                         alphabet=bytes(range(256)))
+    args[1][-1:] = 32                      # a 32-byte term
+    before = kernels.MYERS_REV.launches
+    got = kernels.myers_rev_distances(*args)
+    want = kernels.myers_rev_distances_ref(*args)
+    fwd = kernels.myers_distances(*args)
+    torch.cuda.synchronize()
+    assert kernels.MYERS_REV.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, fwd)
+    if n_queries > kernels.REV_CHUNK:
+        group, _alphabets, _rank = kernels.rev_query_groups_ref(
+            *(a.cpu() for a in args[2:]))
+        assert int(group[kernels.REV_CHUNK - 1]) > 0
 
 
 def test_myers_rev_kernel_full_byte_range():
