@@ -4,8 +4,10 @@
 Drives the port's paths -- BM25 top-10 batch search with fuzzy (typo)
 resolution by the forward, transposed (NXS_FUZZY_REV=1) and
 single-query Myers kernels, boolean (AND / NOT) search on the masked
-sliced route and on the blockdense route -- at the benchmark's
-1M-document tier, through the entry points a user calls (Nxs,
+sliced route and on the blockdense route, and the fallback routes
+(the dense and candidate executors, impact-prefix plans with wide
+terms) -- at the benchmark's 1M-document tier, through the entry
+points a user calls (Nxs,
 Index.add_many, search, search_pipelined, search_many), and checks
 every hand-written kernel of those paths against its plain PyTorch
 twin.  Phases (any failure exits non-zero and prints no result):
@@ -75,7 +77,24 @@ twin.  Phases (any failure exits non-zero and prints no result):
 9. boolean oracle: 64 sampled masked queries of each of phases 6 and 7,
    their parsed query trees walked over per-term document sets of the
    host CSR, BM25 over the matching documents (same tie rule and
-   tolerance as phase 3).
+   tolerance as phase 3);
+10. fallback-routes phase, the routes off the default path (no kernel
+   of their own), each number logged beside the card's name and power
+   limit: (a) 256 masked queries of 33-48 words (seed 47) through
+   search_many on the dense executor (``dense`` == 256), 32 held to
+   the boolean oracle, a second pass identical bit for bit, QPS;
+   (b) the first 512 mixed-trace queries (seed 43) through search_many
+   with the prefix, sliced and blockdense routers off (every row on
+   the candidate or dense executor), ms per call, answers equal to
+   the default routes'; (c) impact-prefix plans with wide terms
+   (search._PREFIX_MAX_WIDE = 4): 2048 make_queries (seed 42) and each
+   wide term alone through search_many, search_pipelined (batches of
+   512) and 64 + 8 through Index.search, every answer equal to the
+   MAX_WIDE = 0 answer, at least one R > 0 row certified (R > 0 plans
+   counted from ``_build_plans``), search_many's R > 0
+   ``prefix_topk_packed`` groups replayed on the CPU and equal, the
+   prefix / prefix_exact / prefix_fallback / prefix_spec_used counters
+   and the region's wide terms, bytes and build seconds.
 
 The next-to-last lines are the kernel table (JSON: per kernel its
 launches on its path, exactness, kernel / plain times, and its bound:
@@ -112,6 +131,12 @@ N_BD = 512
 N_SEGSUM = 64           # blockdense queries in the segsum kernel phase
 N_BOOL_ORACLE = 64      # per masked phase
 N_SINGLE = 64           # Index.search calls of the single-query phase
+N_DENSE = 256           # > 32-term masked queries (dense executor)
+N_DENSE_ORACLE = 32
+N_CAND = 512            # mixed-trace queries on the candidate executor
+N_WIDE = 2048           # make_queries with wide prefix terms (R > 0)
+WIDE_BATCH = 512
+N_WIDE_SINGLE = 64
 PASSES = 3              # measured passes (median reported)
 TOL = 1e-4               # score tolerance of the reference's own tests
 
@@ -826,6 +851,11 @@ def all_kernels():
             kernels.SEGSUM)
 
 
+def launch_counts() -> dict:
+    """Every kernel's launch count, by its entry symbol."""
+    return {kern.symbol: kern.launches for kern in all_kernels()}
+
+
 def myers_counts() -> dict:
     from nxsearch_tpu_torch.ops import kernels
     return {"fwd": kernels.MYERS.launches, "one": kernels.MYERS_ONE.launches,
@@ -1143,6 +1173,246 @@ def segsum_phase(idx, queries: list[str]) -> dict:
             **b}
 
 
+def dense_queries(idx) -> list[str]:
+    """N_DENSE masked queries of 33-48 unique words drawn from the
+    damped Zipf vocab's words in the dictionary (seed 47), alternately
+    ``(a OR b OR ...) AND NOT z`` and ``(a OR ...) AND (m OR ...)``.
+    More than 32 terms: the dense executor's packed bitmaps."""
+    import numpy as np
+
+    words, probs = vocab()
+    known = np.array([idx.host.term_lookup(idx.pipeline.run(str(w)))
+                      is not None for w in words])
+    words = words[known]
+    qp = probs[known] ** 0.35
+    qp /= qp.sum()
+    rng = np.random.default_rng(47)
+    out = []
+    for i in range(N_DENSE):
+        ws = [str(w) for w in words[rng.choice(
+            len(words), int(rng.integers(33, 49)), replace=False, p=qp)]]
+        half = len(ws) // 2
+        out.append(f"({' OR '.join(ws[:-1])}) AND NOT {ws[-1]}" if i % 2 == 0
+                   else f"({' OR '.join(ws[:half])}) AND "
+                        f"({' OR '.join(ws[half:])})")
+    return out
+
+
+def fallback_phase(idx, sp, oracle: HostOracle, card: str) -> dict:
+    """The routes off the default path, on the 1M tier: (a) > 32-term
+    masked queries on the dense executor, (b) the mixed trace forced
+    onto the candidate executor, (c) impact-prefix plans with wide
+    terms (R > 0, search._PREFIX_MAX_WIDE = 4); each held to an oracle
+    or to the default routes' answers."""
+    import numpy as np
+    import torch
+
+    import bench
+    from nxsearch_tpu_torch import search as search_mod
+
+    words, probs = vocab()
+    out = {}
+
+    # (a) dense: two passes, identical bit for bit; an oracle sample.
+    queries = dense_queries(idx)
+    idx.search_many(queries[:16], sp)                    # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = idx.search_many(queries, sp)
+    qps = N_DENSE / (time.perf_counter() - t0)
+    stats = dict(search_mod.EXEC_STATS)
+    launches = launch_counts()
+    again = idx.search_many(queries, sp)
+    if stats.get("dense", 0) != N_DENSE:
+        raise AssertionError(f"dense route: {N_DENSE} rows expected, got "
+                             f"{stats}")
+    if [r.results for r in got] != [r.results for r in again]:
+        raise AssertionError("dense route: two passes differ")
+    check_finite(got)
+    for i in np.random.default_rng(10).choice(N_DENSE, N_DENSE_ORACLE,
+                                              replace=False):
+        oracle.check_boolean(queries[int(i)], got[int(i)])
+    log(f"fallback phase (a) dense: {N_DENSE} masked queries of 33-48 "
+        f"terms through search_many: {qps:.1f} QPS ({card}); dense "
+        f"{stats['dense']} rows; second pass identical; "
+        f"{N_DENSE_ORACLE} sampled answers agree with the boolean oracle; "
+        f"kernel launches {launches}")
+    out["dense"] = {"qps": qps, "rows": stats["dense"], "launches": launches}
+
+    # (b) candidate: the mixed trace through search_many with the
+    # prefix, sliced and blockdense routers off, so every plan takes
+    # the candidate executor (the dense one where its budget reaches
+    # the slot count), through the code that serves them.
+    queries = bench.make_mixed_queries(
+        N_MIXED, words, probs, np.random.default_rng(43))[:N_CAND]
+    want = idx.search_many(queries, sp)                  # default routes
+    routers = {name: getattr(search_mod, name) for name in (
+        "_prefix_mode", "_use_sliced", "_use_blockdense")}
+    try:
+        for name in routers:
+            setattr(search_mod, name, lambda *a, **kw: False)
+        idx.search_many(queries[:64], sp)                # warm-up
+        ms = []
+        for _ in range(PASSES):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            got = idx.search_many(queries, sp)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        stats = dict(search_mod.EXEC_STATS)
+        launches = launch_counts()
+    finally:
+        for name, fn in routers.items():
+            setattr(search_mod, name, fn)
+    if stats.get("candidate", 0) <= 0 or any(
+            stats.get(key, 0) for key in ("prefix", "sliced", "blockdense")):
+        raise AssertionError(f"candidate route: only candidate / dense rows "
+                             f"expected, got {stats}")
+    for q, w, g in zip(queries, want, got):
+        same_answer(w, g, q)
+    check_finite(got)
+    log(f"fallback phase (b) candidate: {N_CAND} mixed-trace queries "
+        f"through search_many with the other routers off: median "
+        f"{median(ms):.3f} ms per call of {[round(x, 3) for x in ms]} "
+        f"({card}); candidate {stats['candidate']} rows, dense "
+        f"{stats.get('dense', 0)}; answers equal the default routes'; "
+        f"kernel launches {launches}")
+    out["candidate"] = {"ms_per_call": median(ms), "ms": ms,
+                        "rows": stats["candidate"],
+                        "dense_rows": stats.get("dense", 0),
+                        "launches": launches}
+    out["prefix_wide"] = prefix_wide_phase(idx, sp, card)
+    return out
+
+
+def prefix_wide_phase(idx, sp, card: str) -> dict:
+    """Fallback phase (c): impact-prefix plans with wide terms (R > 0,
+    search._PREFIX_MAX_WIDE = 4) for N_WIDE make_queries (seed 42) and
+    every wide term alone (its top impacts beat its tail, so rows
+    certify), through search_many, search_pipelined and Index.search,
+    each answer held to the MAX_WIDE = 0 answer.  At least one R > 0
+    row must certify; search_many's R > 0 groups are replayed on the
+    CPU and must agree with the card's (scores within TOL, exact flags
+    equal)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    import bench
+    from nxsearch_tpu_torch import search as search_mod
+    from nxsearch_tpu_torch.ops import executor
+
+    dev = idx.dev
+    words, probs = vocab()
+    wide_ids = np.nonzero(np.asarray(dev.prefix_start_lookup) >= 0)[0]
+    wide_qs = [str(idx.host.term_values[t - 1]) for t in wide_ids]
+    queries = bench.make_queries(N_WIDE, words, probs,
+                                 np.random.default_rng(42)) + wide_qs
+    batches = [queries[i: i + WIDE_BATCH]
+               for i in range(0, len(queries), WIDE_BATCH)]
+    singles = queries[:N_WIDE_SINGLE] + wide_qs[:8]
+    base = idx.search_many(queries, sp)
+    base_single = base[:N_WIDE_SINGLE] + base[N_WIDE:N_WIDE + 8]
+    real = executor.prefix_topk_packed
+    calls = []
+
+    def capture(*a, **kw):
+        packed = real(*a, **kw)
+        if kw["R"] > 0 and len(calls) < 16:
+            calls.append((a, kw, packed))
+        return packed
+
+    saved = search_mod._PREFIX_MAX_WIDE
+    try:
+        search_mod._PREFIX_MAX_WIDE = 4
+        spp = search_mod.get_search_params(idx.algo, sp)
+        plans = search_mod._build_plans(dev, search_mod._prepare_many(
+            dev, idx.pipeline, queries, spp, idx._fuzzy_lookup,
+            idx._fuzzy_prefetch), spp)
+        n_wide = sum(p is not None and p.pf and len(p.pf_tail) > 0
+                     for p in plans)
+        n_pf = sum(p is not None and p.pf for p in plans)
+        idx.search_many(queries[:64], sp)                # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        executor.prefix_topk_packed = capture
+        try:
+            t0 = time.perf_counter()
+            many = idx.search_many(queries, sp)
+            t_many = time.perf_counter() - t0
+        finally:
+            executor.prefix_topk_packed = real
+        many_stats = dict(search_mod.EXEC_STATS)
+        t0 = time.perf_counter()
+        piped = [r for b in idx.search_pipelined(batches, sp) for r in b]
+        t_piped = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        single = [idx.search(q, sp) for q in singles]
+        t_single = time.perf_counter() - t0
+        stats = {key: search_mod.EXEC_STATS.get(key, 0) for key in (
+            "prefix", "prefix_exact", "prefix_fallback",
+            "prefix_spec_used")}
+        launches = launch_counts()
+    finally:
+        search_mod._PREFIX_MAX_WIDE = saved
+    for labels, want, answers in ((queries, base, many),
+                                  (queries, base, piped),
+                                  (singles, base_single, single)):
+        for q, w, g in zip(labels, want, answers):
+            same_answer(w, g, q)
+    # R = 0 rows are exact by construction, so search_many's exact rows
+    # beyond them are the certified R > 0 rows.
+    certified = many_stats.get("prefix_exact", 0) - (n_pf - n_wide)
+    if many_stats.get("prefix", 0) != n_pf or certified <= 0 \
+            or stats["prefix_fallback"] <= 0:
+        raise AssertionError(
+            f"R > 0: {n_pf} prefix plans, {n_wide} of them R > 0, "
+            f"expected prefix rows, certified R > 0 rows and fallbacks: "
+            f"search_many {many_stats}, all entry points {stats}")
+
+    # The card's R > 0 groups against the same calls on the CPU.
+    if not calls:
+        raise AssertionError("R > 0: no prefix_topk_packed call captured")
+    cpu_pack = dev.postings_pack.cpu()
+    err = 0.0
+    for a, kw, packed in calls:
+        want = real(*[cpu_pack if x is dev.postings_pack else
+                      (x.cpu() if torch.is_tensor(x) else x) for x in a],
+                    **kw)
+        got = packed.cpu()
+        if not torch.equal(got[:, 2], want[:, 2]):
+            raise AssertionError("R > 0: exact flags differ card vs CPU")
+        err = max(err, float((got[:, 0] - want[:, 0]).abs().max()))
+        for r in range(got.shape[0]):
+            same_answer(
+                SimpleNamespace(results=list(zip(want[r, 1].tolist(),
+                                                 want[r, 0].tolist()))),
+                SimpleNamespace(results=list(zip(got[r, 1].tolist(),
+                                                 got[r, 0].tolist()))),
+                f"R > 0 group row {r}")
+    region = dict(dev.prefix_stats)
+    n_q = len(queries)
+    log(f"fallback phase (c) prefix R > 0 ({card}): {n_q} queries "
+        f"({N_WIDE} make_queries, {len(wide_qs)} wide terms alone): "
+        f"{n_pf} prefix plans, {n_wide} R > 0, {certified} of them "
+        f"certified in search_many; search_many {n_q / t_many:.1f} QPS, "
+        f"search_pipelined (batches of {WIDE_BATCH}) "
+        f"{n_q / t_piped:.1f} QPS, Index.search "
+        f"{t_single / len(singles) * 1e3:.3f} ms per query; counters over "
+        f"the three {stats}; region: {region['wide_terms']} wide terms, "
+        f"{region['bytes']} bytes, built in {region['seconds']:.3f} s; "
+        f"every answer equals the MAX_WIDE = 0 answer; {len(calls)} R > 0 "
+        f"groups agree with the CPU (max |diff| {err}); kernel launches "
+        f"{launches}")
+    return {"qps_many": n_q / t_many, "qps_pipelined": n_q / t_piped,
+            "ms_per_search": t_single / len(singles) * 1e3,
+            "plans_wide": n_wide, "certified_wide": certified,
+            "stats": stats, "region": region, "replayed": len(calls),
+            "replay_max_abs_err": err, "launches": launches}
+
+
 def boolean_oracle(oracle: HostOracle, mixed: dict, bd: dict) -> None:
     import numpy as np
 
@@ -1198,7 +1468,7 @@ def main() -> int:
             log(f"snapshot build: {snapshot_s:.1f} s, {dev.n_postings} "
                 f"padded postings, {dev.dense_rows.shape[0]} dense rows, "
                 f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-                "allocated")
+                f"allocated; impact prefixes {dev.prefix_stats}")
             oracle = HostOracle(idx)
             sl = slice_phase(idx, sp, ingest_s, oracle)
             rev = rev_phase(idx, sp, oracle)
@@ -1207,6 +1477,7 @@ def main() -> int:
             bd = bd_phase(idx, sp)
             seg = segsum_phase(idx, bd["queries"])
             boolean_oracle(oracle, mixed, bd)
+            fb = fallback_phase(idx, sp, oracle, card)
         finally:
             nxs.close()
     if "jax" in sys.modules:
@@ -1219,6 +1490,7 @@ def main() -> int:
         "rev": rev, "single": one, "myers_times": kern["times"],
         "myers_step_instructions": step_ops, "ptxas": ptxas,
         "blockdense": {k: bd[k] for k in ("qps", "stats", "launches")},
+        "fallback": fb, "card": card,
         "snapshot_s": snapshot_s, "ingest_s": ingest_s, "docs": N_DOCS}))
 
     # No single PyTorch call computes Levenshtein distances or the

@@ -5,15 +5,25 @@ Port of nxsearch_tpu/index/device.py:DeviceIndex onto an explicit
 transposed to term-grouped CSR (HostIndex.build_csr) and published as
 device tensors:
 
-    postings_pack f32[P_pad + guard, 3]  (slot, ltf, dl) rows, slots by
-                                         value (exact below 2**24)
+    postings_pack f32[P_pad + prefix + guard, 3]
+                  (slot, ltf, dl) rows, slots by value (exact below
+                  2**24): the CSR postings, the impact-prefix region,
+                  then guard rows
     doc_len       f32[S_pad]
     alive_mask    int32[S_pad/32]        packed little-bit-order bitmap
     dense_rows    f32[max(H, 1), S_pad]  ltf by device slot, heavy terms
 
-The blockdense executor also reads the pack's slot and ltf columns
-(``postings_slot`` / ``postings_ltf``, derived on first use) and a
-per-term LRU cache of 1024-slot block bounds (``bounds_crows``).
+The blockdense, candidate and dense executors also read the pack's
+slot and ltf columns (``postings_slot`` / ``postings_ltf``, derived on
+first use); blockdense reads a per-term LRU cache of 1024-slot block
+bounds too (``bounds_crows``).
+
+Impact prefixes (``PREFIX_CAP`` > 0, built at every rebuild): each
+"wide" term (base df above max(PREFIX_CAP, WIDE_MIN_DF)) gets its top
+postings by BM25 impact part ltf / (ltf + c1 + c2 * dl), at the
+snapshot's adl, copied slot-sorted into the region, with the tie-free
+cut length and the tail bound (the largest excluded impact) that
+impact-prefix plans of NXS_PREFIX_MAX_WIDE > 0 read.
 
 Device slots ascend by document length; ``slot_perm`` maps a device
 slot back to its host slot.  Removals flip alive bits; additions stay
@@ -21,15 +31,6 @@ on the host as the delta (scored by search._delta_results) until the
 delta outgrows its budget and a full rebuild runs.  The CSR layout is
 cached in ``csr_cache.npz`` beside the journals above 2**24 postings,
 in the reference's format, so both packages can open one basedir.
-
-The impact-prefix region (reference ``_build_prefix``) is not built:
-it is read only by R > 0 prefix plans, which the planner never emits
-while NXS_PREFIX_MAX_WIDE is 0 (the default).  The planner-side
-metadata is still published so R = 0 prefix plans route exactly as in
-the reference: wide terms keep a non-negative ``prefix_start_lookup``
-entry (which sends their rows to the classic sliced planner), tails
-and cut lengths are zero, and ``slice_t_cap`` equals the reference's
-guard width.
 """
 
 from __future__ import annotations
@@ -84,12 +85,51 @@ _PACK_CHUNK = 1 << 22
 
 
 def _prefix_tier(df: int, cap: int) -> int:
-    """Power-of-two read-window tier of the reference's impact-prefix
-    build for a term of ``df`` postings (sizes its read overhang)."""
+    """Power-of-two read window of the impact-prefix build for a term
+    of ``df`` postings (df > cap): starting above cap keeps the
+    top cap + 1 inside every tier."""
     t = _bucket(cap + 1, 2)
     while t < df:
         t <<= 1
     return t
+
+
+def _prefix_build(pack, starts, lens, c1, c2, *, tier: int, cap: int):
+    """Impact prefixes of a chunk of wide terms of one read tier.
+
+    ``starts`` / ``lens`` int64[n] CSR ranges (every len in (cap,
+    tier]); ``c1`` / ``c2`` f32 scalar tensors.  Each term's window
+    [s, s + tier) of the pack is scored by impact part
+    g = ltf / (ltf + c1 + c2 * dl) (lanes past its length -inf; the
+    denominator rounded once, as a fused multiply-add), the
+    top cap + 1 taken in stable order, and the cut placed at the last
+    strict decrease within them, so the tail (the impact at the cut)
+    is strictly below every included impact.  Returns (rows f32[n,
+    cap, 3]: the top cap postings with ranks [0, cut) slot-sorted
+    first and the excluded boundary ties after them, tails f32[n],
+    cuts int64[n]).  The operations are the reference's
+    ``_prefix_build_dev``, whose allocation keeps every window inside
+    the pack (no clamped start)."""
+    from ..ops.executor import _topk
+
+    pos = torch.arange(tier, device=pack.device)
+    at = starts[:, None] + pos[None, :]                    # [n, tier]
+    ltf = pack[at, 1]
+    # (ltf + c1) + c2 * dl rounded once, as the reference's compiler
+    # fuses it (a multiply-add): the f32 product is exact in f64.
+    den = ((ltf + c1).double() + c2.double() * pack[at, 2].double()).float()
+    part = ltf / den
+    part = torch.where(pos[None, :] < lens[:, None], part, -float("inf"))
+    vals, ix = _topk(part, cap + 1)
+    idxs = torch.arange(cap + 1, device=pack.device)
+    strict = torch.nn.functional.pad(vals[:, 1:] < vals[:, :-1], (1, 0))
+    cut = torch.where(strict, idxs, 0).amax(dim=1)
+    tail = vals.gather(1, cut[:, None])[:, 0]
+    rows = pack[starts[:, None] + ix[:, :cap]]             # [n, cap, 3]
+    keep = idxs[None, :cap] < cut[:, None]
+    order = torch.sort(torch.where(keep, rows[..., 0], float("inf")),
+                       dim=1, stable=True)[1]
+    return rows.gather(1, order[..., None].expand(-1, -1, 3)), tail, cut
 
 
 class DeviceIndex:
@@ -140,8 +180,9 @@ class DeviceIndex:
         self._alive_cached = np.zeros(0, dtype=np.bool_)
         self._removed_since_base = 0
         self.postings_pack = None
-        # Slot / ltf columns of the pack for the blockdense executor,
-        # derived on first use (postings_slot / postings_ltf).
+        # Slot / ltf columns of the pack for the blockdense, candidate
+        # and dense executors, derived on first use (postings_slot /
+        # postings_ltf).
         self._slot_dev = None
         self._ltf_dev = None
         self.doc_len = None
@@ -156,6 +197,8 @@ class DeviceIndex:
         self.prefix_len = None
         self.prefix_cap = 0
         self.adl_built = -1.0
+        # The last region build: wide-term count, bytes, seconds.
+        self.prefix_stats = {"wide_terms": 0, "bytes": 0, "seconds": 0.0}
         self._guard_len = 0
         self._adl_dev = None
         self._adl_dev_val = None
@@ -418,9 +461,12 @@ class DeviceIndex:
         dev = self.device
         self.term_starts = term_starts
         self.base_nterms = len(term_starts) - 1
-        # Guard width: the reference's slice_t_cap (its pack rounds up
-        # to whole build chunks past the prefix region); reads never
-        # pass p_pad + guard, so the port allocates only that.
+        # Guard rows past the CSR postings keep every sliced window
+        # start unclamped.  The impact-prefix region sits between the
+        # postings and the guard; its build reads each wide term
+        # through a power-of-two tier window, so the allocation also
+        # absorbs the largest read overhang.  The pack rounds up to
+        # whole build chunks, the reference's layout row for row.
         guard = min(self.SLICE_MAX_T,
                     max(int(counts.max()) if len(counts) else 0, 1))
         cap = int(self.PREFIX_CAP)
@@ -442,10 +488,11 @@ class DeviceIndex:
         guard_len = n_round - p_pad - prefix_len
         upload_hi = min(n_round, -(-p_pad // chunk) * chunk)
 
-        # Pack rows: CSR postings, then zero rows up to p_pad, then
-        # guard rows carrying the s_pad sentinel slot (as far as the
-        # reference's chunked upload writes them; beyond, zero rows).
-        rows = p_pad + guard_len
+        # Pack rows: CSR postings, then zero rows up to p_pad, then rows
+        # carrying the s_pad sentinel slot as far as the reference's
+        # chunked upload writes them (beyond, zero rows); the prefix
+        # build overwrites the region.
+        rows = n_round
         pack = torch.zeros((rows, 3), dtype=torch.float32, device=dev)
         dlen_dev = self._put(dlen)
         sent_hi = min(rows, upload_hi)
@@ -472,9 +519,10 @@ class DeviceIndex:
                 slot_d, max=s_pad - 1).to(torch.int64)]
         _log.debug("rebuild: pack build %.1fs", time.monotonic() - t_phase)
 
-        self._publish_prefix_metadata(wide, counts, cap=cap, p_pad=p_pad,
-                                      doc_count=doc_count,
-                                      token_count=token_count)
+        self._build_prefix(pack, wide, term_starts, counts, cap=cap,
+                           p_pad=p_pad, adl_build=float(
+                               (token_count // doc_count) if doc_count
+                               else 1.0))
 
         # Dense rows for the heaviest terms (device-slot indexed),
         # scattered from the pack: each (term, slot) occurs once, so
@@ -517,28 +565,67 @@ class DeviceIndex:
                    time.monotonic() - t_phase, len(heavy))
         return True
 
-    def _publish_prefix_metadata(self, wide, counts, *, cap: int,
-                                 p_pad: int, doc_count: int,
-                                 token_count: int) -> None:
-        """Planner-side impact-prefix metadata without the region: each
-        wide term's lookup holds the pack offset the reference would
-        give its region (in the reference's tier order), so its rows
-        leave the prefix planner exactly as there; tails and cut
-        lengths stay zero (read only by R > 0 plans, not ported)."""
+    def _build_prefix(self, pack, wide, term_starts, counts, *, cap: int,
+                      p_pad: int, adl_build: float) -> None:
+        """Fill the pack's impact-prefix region in place and publish the
+        planner's metadata: per 1-based term id the region offset
+        (``prefix_start_lookup``, -1 for narrow terms), the tail bound
+        (``prefix_tail``) and the tie-free cut (``prefix_len``), and the
+        adl the impacts were ordered at (``adl_built``).  Wide terms
+        take region slots in (tier, term) order and are built a tier at
+        a time in chunks of at most 2**26 window lanes and 2**22 region
+        rows; ``prefix_stats`` records the count, bytes and seconds."""
+        from ..ops.scoring import BM25_B, BM25_K1
+
+        t0 = time.monotonic()
         lookup = np.full(self.base_nterms + 1, -1, dtype=np.int32)
-        if len(wide):
-            tiers = np.asarray([_prefix_tier(int(x), cap)
-                                for x in counts[wide]], dtype=np.int64)
-            order = np.lexsort((wide, tiers))
-            lookup[wide[order] + 1] = (
-                p_pad + np.arange(len(wide), dtype=np.int64) * cap
-            ).astype(np.int32)
+        tails = np.zeros(self.base_nterms + 1, dtype=np.float32)
+        plens = np.zeros(self.base_nterms + 1, dtype=np.int32)
         self.prefix_start_lookup = lookup
-        self.prefix_tail = np.zeros(self.base_nterms + 1, dtype=np.float32)
-        self.prefix_len = np.zeros(self.base_nterms + 1, dtype=np.int32)
+        self.prefix_tail = tails
+        self.prefix_len = plens
+        self.adl_built = adl_build
         self.prefix_cap = cap
-        self.adl_built = float((token_count // doc_count)
-                               if doc_count else 1.0)
+        if len(wide):
+            lens_w = counts[wide].astype(np.int64)
+            tiers = np.asarray([_prefix_tier(int(x), cap) for x in lens_w],
+                               dtype=np.int64)
+            order = np.lexsort((wide, tiers))
+            wide, lens_w, tiers = wide[order], lens_w[order], tiers[order]
+            starts_w = term_starts[wide].astype(np.int64)
+            dest = p_pad + np.arange(len(wide), dtype=np.int64) * cap
+            tails_w = np.zeros(len(wide), dtype=np.float32)
+            cuts_w = np.zeros(len(wide), dtype=np.int32)
+            dev = pack.device
+            c1 = torch.tensor(np.float32(BM25_K1 * (1.0 - BM25_B)),
+                              device=dev)
+            c2 = torch.tensor(np.float32(BM25_K1 * BM25_B
+                                         / max(adl_build, 1e-9)),
+                              device=dev)
+            at = 0
+            while at < len(wide):
+                tier = int(tiers[at])
+                hi = at + int(np.count_nonzero(tiers[at:] == tier))
+                nt = max(1, min((1 << 26) // tier, (1 << 22) // cap))
+                for g in range(at, hi, nt):
+                    ge = min(g + nt, hi)
+                    rows, t_d, c_d = _prefix_build(
+                        pack, self._put(starts_w[g:ge]),
+                        self._put(lens_w[g:ge]), c1, c2, tier=tier, cap=cap)
+                    pack[int(dest[g]): int(dest[g]) + (ge - g) * cap] = \
+                        rows.reshape(-1, 3)
+                    tails_w[g:ge] = t_d.cpu().numpy()
+                    cuts_w[g:ge] = c_d.cpu().numpy()
+                at = hi
+            lookup[wide + 1] = dest.astype(np.int32)
+            tails[wide + 1] = tails_w
+            plens[wide + 1] = cuts_w
+        self.prefix_stats = {"wide_terms": int(len(wide)),
+                             "bytes": int(len(wide) * cap * 12),
+                             "seconds": time.monotonic() - t0}
+        _log.debug("rebuild: impact prefixes %.3fs (%d wide terms, %d "
+                   "bytes)", self.prefix_stats["seconds"], len(wide),
+                   self.prefix_stats["bytes"])
 
     @classmethod
     def from_arrays(cls, host: HostIndex, arrays: dict,

@@ -1,13 +1,16 @@
 """Boolean query algebra: the postfix program compiler (host) and its
-presence-bits interpreter (torch).
+interpreters (torch).
 
 The planner lowers a query AST to a fixed-width postfix program
-(``compile_program``); ``eval_program_bits`` interprets it over
-per-document presence bits on the device, the evaluator of the sliced
-and blockdense executors.  Opcodes, limits and the compiler are
-identical to nxsearch_tpu/ops/boolean.py.  The packed-bitmap
-evaluators there (``build_term_masks`` / ``eval_program``) serve only
-the candidate / dense executors, which this port does not carry yet.
+(``compile_program``).  Two interpreters run it on the device:
+``eval_program_bits`` over per-document presence bits (the sliced,
+blockdense and candidate executors; at most 32 terms), and
+``eval_program`` over packed per-term document bitmaps built by
+``build_term_masks`` (the dense executor, any number of terms).
+Opcodes, limits and the compiler are identical to
+nxsearch_tpu/ops/boolean.py.  Every interpreter is batched: each row
+steps through its own program in lockstep, the five results of a step
+computed for every row and one selected per row.
 """
 
 from __future__ import annotations
@@ -90,6 +93,68 @@ def check_nesting(root: Expr) -> None:
             return r
         return max(depth(e, r + 1) for e in expr.elements)
     depth(root, 0)
+
+
+def build_term_masks(slot, qid, valid, *, n_terms: int, n_words: int):
+    """Scatter each row's query-term postings into packed per-term doc
+    bitmaps.
+
+    slot / qid / valid: [N, B], the flat gather plan of
+    ops/scoring.flatten_ranges (slot: the postings' device slots).
+    Returns int32[N, n_terms + 1, n_words] little-bit-order words; row
+    n_terms stays zero (the empty bitmap of unresolved leaves).  Each
+    (term, slot) pair occurs once in the postings, so adding distinct
+    bits is OR (bit 31 is the sign bit, and -2**31 plus any sum of the
+    other bits stays in range).  Invalid lanes add 0 to the spill row,
+    which is zeroed after."""
+    n = slot.shape[0]
+    slot = slot.to(torch.int64)
+    word = slot >> 5
+    bit = (torch.ones_like(slot) << (slot & 31)).to(torch.int32)
+    rows = torch.where(valid, qid.to(torch.int64), n_terms)
+    flat = ((torch.arange(n, device=slot.device)[:, None] * (n_terms + 1)
+             + rows) * n_words + torch.where(valid, word, 0))
+    masks = torch.zeros(n * (n_terms + 1) * n_words, dtype=torch.int32,
+                        device=slot.device)
+    masks.index_add_(0, flat.reshape(-1),
+                     torch.where(valid, bit, 0).reshape(-1))
+    masks = masks.reshape(n, n_terms + 1, n_words)
+    masks[:, n_terms] = 0
+    return masks
+
+
+def eval_program(term_masks, ops, args, *, depth: int = 8):
+    """Interpret each row's postfix program over packed bitmaps.
+
+    term_masks: int32[N, Q + 1, W]; ops / args: int[N, L] NOP-padded
+    (PUSH q pushes term q's bitmap, q == Q the empty one); ``depth``
+    the static stack bucket (>= every program's simulated depth).
+    Returns the final int32[N, W] document mask of each row.  Stack
+    positions clamp as ``lax.dynamic_index_in_dim`` does."""
+    n, _q1, n_words = term_masks.shape
+    dev = term_masks.device
+    ops = ops.to(device=dev, dtype=torch.int64)
+    args = args.to(device=dev, dtype=torch.int64)
+    stack = torch.zeros((n, depth, n_words), dtype=torch.int32, device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    rows = torch.arange(n, device=dev)
+    q_last = term_masks.shape[1] - 1
+    for step in range(ops.shape[1]):
+        op = ops[:, step]
+        push = op == OP_PUSH
+        binary = op >= OP_AND
+        leaf = term_masks[rows, args[:, step].clamp(0, q_last)]
+        a = stack[rows, (sp - 2).clamp(0, depth - 1)]
+        c = stack[rows, (sp - 1).clamp(0, depth - 1)]
+        val = torch.where(
+            push[:, None], leaf,
+            torch.where((op == OP_AND)[:, None], a & c,
+                        torch.where((op == OP_OR)[:, None], a | c, a & ~c)))
+        pos = torch.where(push, sp, sp - 2).clamp(0, depth - 1)
+        write = (push | binary)[:, None]
+        stack[rows, pos] = torch.where(write, val, stack[rows, pos])
+        sp = sp + push.to(torch.int64) - binary.to(torch.int64)
+    return stack[:, 0]
 
 
 # Sentinel PUSH argument for an unresolved (empty-set) leaf in the

@@ -2,15 +2,25 @@
 
 Port of nxsearch_tpu/ops/executor.py:
 
-- ``prefix_topk`` (R = 0: the complete-plane impact-prefix path, the
-  dominant serving signature);
+- ``prefix_topk``: R = 0, the complete-plane impact-prefix path (the
+  dominant serving signature), and R > 0, wide terms windowed over
+  their impact prefix, the top-M candidates by upper bound rescored by
+  binary search over the wide terms' full postings, and the result
+  certified (or not) against the bounds;
 - ``sliced_topk`` (single-term plane, windowed ``n_run`` planes, the
   dense-row hybrid ``use_rows``, the head-term merge ``T_head`` and the
   masked branches: presence bits per candidate, the program evaluated
   per document, the masked dense-row hybrid);
 - ``blockdense_topk`` / ``blockdense_topk_bounds``: every slot scored
   by the segsum kernel (ops/kernels.py) in 8-term groups, dense-row
-  terms swept elementwise, the program evaluated per slot.
+  terms swept elementwise, the program evaluated per slot;
+- ``candidate_topk`` (``device_search`` / ``device_search_batch``):
+  the query terms' CSR ranges flattened into one [N, budget] gather
+  plane over the slot / ltf columns, sorted by slot, summed per
+  document, the program evaluated on per-candidate presence bits;
+- ``dense_topk`` (``device_search_dense`` / ``_batch``): the same
+  plane scattered into a dense per-slot score row, the program
+  evaluated over packed per-term bitmaps (any number of terms).
 
 The windowed executors read the snapshot's interleaved (slot, ltf, dl)
 pack through contiguous per-(query, window) row windows, score BM25 /
@@ -18,7 +28,11 @@ TF-IDF elementwise, sort each query's plane by slot, sum every
 document's run with the reference's fixed shifted passes and take the
 top k.  These are plain tensor operations in the reference too (no
 Pallas), so here they are torch ops; the block-dense scores are the
-one hand kernel on these routes.
+one hand kernel on these routes.  The candidate and dense executors
+are plain tensor operations as well.  They read the slot column
+derived from the f32 pack, which is exact only below 2**24 slots, so
+the router refuses them on larger snapshots (as it refuses every
+route there).
 
 Exactness rules kept from the reference:
 - ties in every top-k resolve toward the lowest plane index, i.e. the
@@ -28,10 +42,12 @@ Exactness rules kept from the reference:
   the same shifted-pass order, so CPU results match to ~1 ulp;
 - bitmaps stay int32 and every shift is masked with ``& 1``; presence
   bits (u32 in the reference) ride in int64 masked to 32 bits, so bit
-  31 is not a sign bit.
-
-The impact-prefix R > 0 branch is not carried yet and raises
-``NotImplementedError``.
+  31 is not a sign bit;
+- per-document sums never use float atomics: the candidate plane adds
+  each run's lanes in order from its first lane, and the dense row
+  adds one term at a time (each (term, slot) pair occurs once), both
+  the reference's sequential scatter-add order, so two runs on the
+  card agree bit for bit.
 """
 
 from __future__ import annotations
@@ -39,9 +55,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .boolean import eval_program_bits
+from .boolean import build_term_masks, eval_program, eval_program_bits
 from .kernels import BLOCK_SLOTS, MAX_KERNEL_TERMS, blockdense_scores
-from .scoring import ALGO_BM25, BM25_B, BM25_K1, bm25, tf_idf
+from .scoring import ALGO_BM25, BM25_B, BM25_K1, bm25, flatten_ranges, tf_idf
 
 _U32 = 0xFFFFFFFF
 
@@ -343,26 +359,41 @@ def sliced_topk(
 
 
 def prefix_topk(
-    postings_pack,   # f32[P_pad + guard, 3]: (slot, ltf, dl)
+    postings_pack,   # f32[P_pad + prefix + guard, 3]: (slot, ltf, dl)
     alive_mask,      # int32[S_pad/32]
-    q_start,         # int32[N, Qs]: window starts
+    q_start,         # int32[N, Qs]: window starts (wide terms point at
+                     # their impact-prefix region)
     q_len,           # int32[N, Qs]
     q_idf,           # float32[N, Qs]
     adl,             # f32 scalar tensor
-    *, R: int, T: int, k: int, algo: int, n_slots: int,
-    alive_all: bool, n_run: int,
+    col_bit=None,    # int32[N, Qs]: 1 << j for windows of wide term j,
+                     # 0 for complete terms' windows (R > 0 only)
+    w_tail=None,     # float32[N, R]: idf * tail impact bound per wide
+                     # term (0 on padding)
+    w_start=None,    # int32[N, R]: FULL CSR start of each wide term
+    w_len=None,      # int32[N, R]: FULL base df (0 on padding)
+    w_idf=None,      # float32[N, R]
+    *, T: int, k: int, M: int = 32, algo: int, n_slots: int,
+    alive_all: bool, n_run: int, k_ret: int = 0,
 ):
-    """Impact-prefix exact top-k, complete-plane branch (R = 0): every
-    term's windows cover its full CSR range, so the result is exact by
-    construction.  Returns packed f32[N, 3, k'] (scores, slots by
-    value, exact flag = 1)."""
+    """Impact-prefix exact top-k; returns packed f32[N, 3, k'] (scores,
+    slots by value, exact flag).
+
+    R = 0 (no wide term in the group): every term's windows cover its
+    full CSR range, so the result is exact by construction.  R > 0:
+    the plane also carries each lane's wide-term bit; a document's
+    upper bound is its plane sum plus the tails of the wide terms it
+    lacks; the top-M documents by bound are rescored exactly (binary
+    search of each absent wide term's full slot-sorted postings),
+    re-sorted by slot so ties go to the lowest slot, and the row is
+    certified exact when the k_ret-th score strictly beats both the
+    best unselected bound and the all-tails bound (ulp-inflated, f32
+    constants).  Uncertified rows re-run on the classic routes.  The
+    operations and their order are the reference's."""
     assert algo == ALGO_BM25, "impact prefixes are built for BM25"
-    if R > 0:
-        raise NotImplementedError(
-            "prefix_topk: the R > 0 branch (wide-term rescore and "
-            "certification) is not ported")
     assert n_slots < (1 << 24), "slot indexes must stay exact in f32"
     n_batch, n_terms = q_start.shape
+    R = 0 if w_tail is None else w_tail.shape[1]
     n_logical = n_run if n_run > 0 else n_terms
 
     win = _sliced_fetch(postings_pack, q_start, T=T)   # [N, Qs, T, 3]
@@ -380,17 +411,109 @@ def prefix_topk(
     flat = n_terms * T
     key = torch.where(valid, slot_f, _INF).reshape(n_batch, flat)
     contrib_f = contrib.reshape(n_batch, flat)
+    bits_f = None
+    if R > 0:
+        bits_f = torch.where(valid, col_bit.to(torch.int64)[:, :, None],
+                             0).reshape(n_batch, flat)
     if n_logical == 1:
-        key_s, contrib_s = key, contrib_f
+        key_s, contrib_s, bits_s = key, contrib_f, bits_f
+    elif R > 0:
+        key_s, contrib_s, bits_s = _slot_sort(key, contrib_f, bits_f)
     else:
         key_s, contrib_s = _slot_sort(key, contrib_f)
-    run, _ = _run_sums(key_s, contrib_s, n_logical)
+        bits_s = None
+    run, run_bits = _run_sums(key_s, contrib_s, n_logical, bits_s)
     is_doc = _last_of_run(key_s) & torch.isfinite(key_s)
-    segsum = torch.where(is_doc, run, 0.0)
-    scores, ix = _topk(segsum, min(k, flat))
-    slots = key_s.gather(1, ix)
+    if R == 0:
+        segsum = torch.where(is_doc, run, 0.0)
+        scores, ix = _topk(segsum, min(k, flat))
+        slots = key_s.gather(1, ix)
+        slots = torch.where(scores > 0.0, slots, 0.0)
+        return torch.stack([scores, slots, torch.ones_like(scores)], dim=1)
+
+    # Upper bound per document: its plane sum plus the tails of the
+    # wide terms absent from its run.
+    total_tail = torch.zeros(n_batch, dtype=torch.float32,
+                             device=w_tail.device)
+    for j in range(R):
+        total_tail = total_tail + w_tail[:, j]
+    have = torch.zeros_like(run)
+    for j in range(R):
+        have = have + w_tail[:, j: j + 1] * ((run_bits >> j) & 1).to(
+            torch.float32)
+    u = run + (total_tail[:, None] - have)
+    u_lane = torch.where(is_doc, u, -_INF)
+
+    m1 = min(M + 1, flat)
+    m_sel = min(M, flat)
+    topu, ix = _topk(u_lane, m1)
+    u_out = topu[:, m_sel] if m1 > m_sel else torch.full(
+        (n_batch,), -_INF, dtype=torch.float32, device=topu.device)
+    sel = ix[:, :m_sel]
+    cand_slot = key_s.gather(1, sel)                          # f32
+    cand_s = torch.where(is_doc, run, 0.0).gather(1, sel)
+    cand_bits = run_bits.gather(1, sel)
+    cand_ok = torch.isfinite(u_lane.gather(1, sel))
+
+    # Exact rescore: a lower-bound search of each candidate in every
+    # absent wide term's full postings (the reference's iterations,
+    # including its unguarded updates once lo meets hi).
+    pack0 = postings_pack[:, 0]
+    pack_last = postings_pack.shape[0] - 1
+    iters = max(int(n_slots).bit_length(), 1)
+    s_ex = cand_s
+    for j in range(R):
+        start = w_start[:, j: j + 1].to(torch.int64)
+        hi0 = start + w_len[:, j: j + 1].to(torch.int64)
+        lo = start.expand(n_batch, m_sel)
+        hi = hi0.expand(n_batch, m_sel)
+        for _ in range(iters):
+            mid = (lo + hi) >> 1
+            go_right = pack0[mid.clamp(max=pack_last)] < cand_slot
+            lo = torch.where(go_right, mid + 1, lo)
+            hi = torch.where(go_right, hi, mid)
+        lo_c = lo.clamp(max=pack_last)
+        found = ((pack0[lo_c] == cand_slot) & (lo < hi0)
+                 & (w_len[:, j: j + 1] > 0))
+        c = bm25(postings_pack[lo_c, 1], postings_pack[lo_c, 2],
+                 w_idf[:, j: j + 1], adl)
+        absent = ((cand_bits >> j) & 1) == 0
+        s_ex = s_ex + torch.where(found & absent & cand_ok, c, 0.0)
+
+    if not alive_all:
+        # A dead document's lanes scored 0, but the rescore must not
+        # resurrect it.
+        cslot_i = torch.where(cand_ok, cand_slot, 0.0).to(torch.int32)
+        s_ex = s_ex * _alive_at(alive_mask, cslot_i).to(torch.float32)
+    s_ex = torch.where(cand_ok, s_ex, 0.0)
+
+    # Slot order first, so the final top-k breaks ties toward the
+    # lowest slot like the classic executors.
+    slot_sorted, s_sorted = _slot_sort(
+        torch.where(cand_ok, cand_slot, _INF), s_ex)
+    k_eff = min(k, m_sel)
+    scores, ixf = _topk(s_sorted, k_eff)
+    slots = slot_sorted.gather(1, ixf)
     slots = torch.where(scores > 0.0, slots, 0.0)
-    return torch.stack([scores, slots, torch.ones_like(scores)], dim=1)
+
+    # Certify at the requested depth: the k_ret-th exact score must
+    # strictly beat the best unselected bound and the all-tails bound;
+    # a zero total tail means the plane was complete.
+    kth = scores[:, min(k_ret or k_eff, k_eff) - 1]
+    grow = torch.tensor(1.0 + 1e-5, dtype=torch.float32,
+                        device=kth.device).double()
+    eps = torch.tensor(1e-10, dtype=torch.float32, device=kth.device).double()
+
+    def inflate(x):
+        # x * grow + eps rounded once, as the reference's compiler fuses
+        # it (the f32 product is exact in f64).
+        return torch.where(x > 0.0, (x.double() * grow + eps).float(), x)
+
+    exact = ((total_tail == 0.0)
+             | ((kth > inflate(u_out)) & (kth > inflate(total_tail)))
+             ).to(torch.float32)
+    return torch.stack([scores, slots, exact[:, None].expand_as(scores)],
+                       dim=1)
 
 
 def _take(buf, off: int, n: int, m: int, shape: tuple, f32: bool):
@@ -399,23 +522,32 @@ def _take(buf, off: int, n: int, m: int, shape: tuple, f32: bool):
 
 
 def prefix_topk_packed(postings_pack, alive_mask, buf, adl, *, qs: int,
-                       R: int, T: int, k: int, algo: int, n_slots: int,
-                       alive_all: bool, n_run: int):
+                       R: int, T: int, k: int, M: int = 32, algo: int,
+                       n_slots: int, alive_all: bool, n_run: int,
+                       k_ret: int = 0):
     """One-buffer front end for prefix_topk (one host->device copy per
     dispatch group).  Layout (row-major [n, ...] per field):
     sl_start[n,qs] sl_len[n,qs] sl_idf[n,qs] col_bit[n,qs] and, for
     R > 0, w_tail w_start w_len w_idf [n,R] each."""
+    n = buf.shape[0] // (4 * qs + 4 * R)
+    off = 0
+
+    def take(m, f32=False):
+        nonlocal off
+        seg = _take(buf, off, n, m, (m,), f32)
+        off += m * n
+        return seg
+
+    q_start, q_len, q_idf, col_bit = take(qs), take(qs), take(qs, True), \
+        take(qs)
+    wide = {}
     if R > 0:
-        raise NotImplementedError(
-            "prefix_topk: the R > 0 branch (wide-term rescore and "
-            "certification) is not ported")
-    n = buf.shape[0] // (4 * qs)
-    q_start = _take(buf, 0, n, qs, (qs,), False)
-    q_len = _take(buf, n * qs, n, qs, (qs,), False)
-    q_idf = _take(buf, 2 * n * qs, n, qs, (qs,), True)
+        wide = dict(col_bit=col_bit, w_tail=take(R, True),
+                    w_start=take(R), w_len=take(R), w_idf=take(R, True))
     return prefix_topk(postings_pack, alive_mask, q_start, q_len, q_idf,
-                       adl, R=R, T=T, k=k, algo=algo, n_slots=n_slots,
-                       alive_all=alive_all, n_run=n_run)
+                       adl, T=T, k=k, M=M, algo=algo, n_slots=n_slots,
+                       alive_all=alive_all, n_run=n_run, k_ret=k_ret,
+                       **wide)
 
 
 def _i32(p) -> np.ndarray:
@@ -698,3 +830,175 @@ def device_search_blockdense(postings_slot, postings_ltf, doc_len,
         dense_rows, one(d_qpos), one(d_row), **kw)
     scores, slots = unpack_blockdense(packed.cpu().numpy())
     return scores[0], slots[0]
+
+
+_SLOT_SENTINEL = 0x7FFFFFFF
+
+
+def _flat_plane(postings_slot, postings_ltf, doc_len, alive_mask, q_start,
+                q_len, q_idf, adl, *, budget: int, algo: int):
+    """Each row's query-term ranges flattened into one [N, budget]
+    gather plane (ops/scoring.flatten_ranges) and scored: returns
+    (slot int64, qid, valid, contrib f32).  Positions past a row's
+    postings read a clamped index and contribute nothing (JAX clamps
+    such gathers)."""
+    src, qid, valid = flatten_ranges(q_start, q_len, budget)
+    src = src.clamp(max=postings_slot.shape[0] - 1)
+    slot = postings_slot[src].to(torch.int64)
+    ltf = postings_ltf[src]
+    idf = q_idf.gather(1, qid)
+    score = bm25(ltf, doc_len[slot], idf, adl) if algo == ALGO_BM25 \
+        else tf_idf(ltf, idf)
+    contrib = torch.where(valid & _alive_at(alive_mask, slot), score, 0.0)
+    return slot, qid, valid, contrib
+
+
+def candidate_topk(
+    postings_slot,   # int32[P_pad], slot-sorted per term
+    postings_ltf,    # f32[P_pad]
+    doc_len,         # f32[S_pad]
+    alive_mask,      # int32[S_pad/32]
+    q_start,         # int32[N, Q]
+    q_len,           # int32[N, Q]
+    q_idf,           # f32[N, Q]
+    adl,             # f32 scalar tensor
+    prog_ops,        # int32[N, L] (NOP-padded; read when use_mask)
+    prog_args,       # int32[N, L]
+    *, budget: int, k: int, algo: int, use_mask: bool, depth: int = 8,
+):
+    """Candidate-scoring exact top-k of each row: (scores f32[N, k'],
+    slots int32[N, k']), k' = min(k, budget); score <= 0 is no match.
+
+    The flat plane is sorted by slot (stable: a document's lanes stay
+    in term order, padding lanes keyed past every slot), each run of
+    equal slots is summed from its first lane forward -- the order of
+    the reference's sequential scatter-add, and a run is at most Q
+    lanes long since each (term, slot) pair occurs once -- and the
+    runs are compacted to the front as the reference's segment arrays
+    are.  Masked rows evaluate their program on each candidate's
+    presence bits (at most 32 terms)."""
+    n, n_terms = q_start.shape
+    slot, qid, valid, contrib = _flat_plane(
+        postings_slot, postings_ltf, doc_len, alive_mask, q_start, q_len,
+        q_idf, adl, budget=budget, algo=algo)
+    bits = torch.where(valid, 1 << qid.clamp(max=31), 0)
+    key_s, order = torch.sort(torch.where(valid, slot, _SLOT_SENTINEL),
+                              dim=1, stable=True)
+    contrib_s = contrib.gather(1, order)
+    bits_s = bits.gather(1, order)
+
+    first = torch.cat([torch.ones((n, 1), dtype=torch.bool,
+                                  device=key_s.device),
+                       key_s[:, 1:] != key_s[:, :-1]], dim=1)
+    total = contrib_s
+    agg_bits = bits_s
+    for off in range(1, min(n_terms, budget)):
+        same = torch.nn.functional.pad(key_s[:, off:] == key_s[:, :-off],
+                                       (0, off))
+        nxt = torch.nn.functional.pad(contrib_s[:, off:], (0, off))
+        total = total + torch.where(same, nxt, 0.0)
+        if use_mask:
+            nb = torch.nn.functional.pad(bits_s[:, off:], (0, off))
+            agg_bits = agg_bits | torch.where(same, nb, 0)
+    # Compact: run r's first lane lands at position r; later lanes go
+    # to a spill column.
+    seg = torch.cumsum(first.to(torch.int64), dim=1) - 1
+    dest = torch.where(first, seg, budget)
+    agg_score = torch.zeros((n, budget + 1), dtype=torch.float32,
+                            device=key_s.device).scatter_(1, dest, total)
+    agg_slot = torch.zeros((n, budget + 1), dtype=torch.int64,
+                           device=key_s.device).scatter_(1, dest, key_s)
+    agg_score = agg_score[:, :budget]
+    if use_mask:
+        agg_bits = torch.zeros_like(agg_slot).scatter_(
+            1, dest, agg_bits)[:, :budget]
+        keep = eval_program_bits(agg_bits, prog_ops, prog_args, depth=depth)
+        agg_score = torch.where(keep, agg_score, 0.0)
+    scores, ix = _topk(agg_score, min(k, budget))
+    return scores, agg_slot.gather(1, ix).to(torch.int32)
+
+
+def dense_topk(
+    postings_slot, postings_ltf, doc_len, alive_mask,
+    q_start,         # int32[N, Q]
+    q_len,           # int32[N, Q]
+    q_idf,           # f32[N, Q]
+    adl,             # f32 scalar tensor
+    prog_ops,        # int32[N, L] or None when not use_mask
+    prog_args,
+    *, budget: int, k: int, algo: int, n_slots: int, use_mask: bool,
+    depth: int = 8, term_lens,
+):
+    """Dense-scoring exact top-k of each row: (scores f32[N, k'], slots
+    int32[N, k']), k' = min(k, n_slots).  No sort: packed per-term doc
+    bitmaps (any number of terms) gate the postings through the
+    program, and the contributions land in a dense per-slot row one
+    term at a time, in term order, so each slot adds its terms in the
+    reference's order and no two lanes of a pass share a slot.  Right
+    for > 32-term boolean queries and for postings streams as large as
+    the corpus.  ``term_lens``: each term column's longest range over
+    the rows, as host ints."""
+    n, n_terms = q_start.shape
+    slot, qid, valid, contrib = _flat_plane(
+        postings_slot, postings_ltf, doc_len, alive_mask, q_start, q_len,
+        q_idf, adl, budget=budget, algo=algo)
+    if use_mask:
+        masks = build_term_masks(slot, qid, valid, n_terms=n_terms,
+                                 n_words=n_slots // 32)
+        final = eval_program(masks, prog_ops, prog_args, depth=depth)
+        word = final.gather(1, (slot >> 5).clamp(max=final.shape[1] - 1))
+        contrib = torch.where(((word.to(torch.int64) >> (slot & 31)) & 1)
+                              != 0, contrib, 0.0)
+    q_len = q_len.to(torch.int64)
+    first = torch.cumsum(q_len, dim=1) - q_len      # term q's first lane
+    row_at = torch.arange(n, device=slot.device)[:, None] * n_slots
+    dense = torch.zeros(n * n_slots, dtype=torch.float32, device=slot.device)
+    for q, width in enumerate(term_lens):
+        if width <= 0:
+            continue
+        lane = torch.arange(int(width), device=slot.device)[None, :]
+        at = (first[:, q: q + 1] + lane).clamp(max=budget - 1)
+        s = slot.gather(1, at)
+        on = (lane < q_len[:, q: q + 1]) & (s < n_slots)
+        dense.index_add_(0, (row_at + s.clamp(max=n_slots - 1)).reshape(-1),
+                         torch.where(on, contrib.gather(1, at), 0.0)
+                         .reshape(-1))
+    scores, slots = _topk(dense.reshape(n, n_slots), min(k, n_slots))
+    return scores, slots.to(torch.int32)
+
+
+def _one(t):
+    return None if t is None else t[None]
+
+
+def device_search(postings_slot, postings_ltf, doc_len, alive_mask,
+                  q_start, q_len, q_idf, adl, prog_ops, prog_args, **kw):
+    """Single-query candidate entry ([Q] / [L] inputs): (scores f32[k'],
+    slots int32[k']) device tensors."""
+    scores, slots = candidate_topk(
+        postings_slot, postings_ltf, doc_len, alive_mask, _one(q_start),
+        _one(q_len), _one(q_idf), adl, _one(prog_ops), _one(prog_args),
+        **kw)
+    return scores[0], slots[0]
+
+
+# The batched candidate entry: one call scores N queries over the
+# shared snapshot (the reference's vmap of the candidate core).
+device_search_batch = candidate_topk
+
+
+def device_search_dense(postings_slot, postings_ltf, doc_len, alive_mask,
+                        q_start, q_len, q_idf, adl, prog_ops, prog_args,
+                        **kw):
+    """Single-query dense entry ([Q] / [L] inputs; the program may be
+    None when not use_mask): (scores f32[k'], slots int32[k'])."""
+    scores, slots = dense_topk(
+        postings_slot, postings_ltf, doc_len, alive_mask, _one(q_start),
+        _one(q_len), _one(q_idf), adl, _one(prog_ops), _one(prog_args),
+        term_lens=q_len.tolist(), **kw)
+    return scores[0], slots[0]
+
+
+# The batched dense entry (the reference's vmap of the dense core).
+device_search_dense_batch = dense_topk
+

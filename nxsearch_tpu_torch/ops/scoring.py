@@ -1,4 +1,5 @@
-"""Elementwise ranking formulas (src/algo/ranking.c:41,99) in torch.
+"""Elementwise ranking formulas (src/algo/ranking.c:41,99) in torch,
+and the flat gather plan of the candidate / dense executors.
 
 Same operation order as nxsearch_tpu/ops/scoring.py, in f32: a python
 scalar operand of a float32 tensor op is rounded to f32 first, like
@@ -12,6 +13,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 # BM25 constants (reference: src/algo/ranking.c:141-142).
 BM25_K1 = 1.2
@@ -19,6 +21,32 @@ BM25_B = 0.75
 
 ALGO_BM25 = 0
 ALGO_TFIDF = 1
+
+
+def flatten_ranges(q_start: torch.Tensor, q_len: torch.Tensor, budget: int):
+    """Flatten each row's Q variable-length CSR ranges into one
+    fixed-size plan of ``budget`` positions (>= every row's total).
+
+    q_start / q_len: int[..., Q] (a leading batch axis is optional).
+    Returns (src, qid, valid), each [..., budget]: the postings index,
+    the owning query-term index and whether the position addresses a
+    real posting.  Ranges lie back to back in term order; the
+    right-sided search skips zero-length ranges, as in the reference.
+    ``src`` of an invalid position may point past the postings (the
+    caller clamps its gathers)."""
+    lead = q_len.shape[:-1]
+    n_terms = q_len.shape[-1]
+    q_len = q_len.to(torch.int64).reshape(-1, n_terms)
+    q_start = q_start.to(torch.int64).reshape(-1, n_terms)
+    cum = torch.nn.functional.pad(torch.cumsum(q_len, dim=1), (1, 0))
+    b = torch.arange(budget, dtype=torch.int64, device=q_len.device)
+    b = b.expand(q_len.shape[0], budget).contiguous()
+    qid = torch.searchsorted(cum, b, right=True) - 1
+    qid = qid.clamp(0, n_terms - 1)
+    src = q_start.gather(1, qid) + (b - cum.gather(1, qid))
+    valid = b < cum[:, -1:]
+    return (src.reshape(lead + (budget,)), qid.reshape(lead + (budget,)),
+            valid.reshape(lead + (budget,)))
 
 
 def bm25(ltf, dl, idf, adl):

@@ -4,14 +4,19 @@ Port of nxsearch_tpu/search.py.  The host half of nxs_index_search
 (src/query/search.c:285-342) -- parameter handling, journal sync,
 query preparation, the numpy planner and response assembly -- is
 carried over unchanged, so both packages build field-for-field equal
-plans.  The device half dispatches the executors this port carries
-(ops/executor.py): the impact-prefix complete-plane path ("pf",
-R = 0), the sliced path ("sl": single, windowed, dense-row hybrid,
-head merge, masked, masked dense-row hybrid) and the blockdense path
-("bd": the segsum kernel over every slot).  A plan that routes to the
-candidate / dense executors (masked queries of more than 32 terms,
-2**24 slots or more) raises NotImplementedError naming the route;
-nothing is silently rerouted.
+plans.  The device half dispatches every single-device executor of
+the reference (ops/executor.py): the impact-prefix path ("pf"; R = 0
+complete planes, and R > 0 planes whose uncertified rows re-run
+classically -- a speculative sliced twin for ``search``, one fallback
+sub-batch for the batch paths), the sliced path ("sl": single,
+windowed, dense-row hybrid, head merge, masked, masked dense-row
+hybrid), the blockdense path ("bd": the segsum kernel over every
+slot), and the candidate and dense executors (plans keyed by
+``_Plan.batch_key``: masked queries of more than 32 terms).  Every
+route reads slots from the f32 pack, exact only below 2**24 slots, so
+a snapshot of 2**24 slots or more raises NxsError(LIMIT) naming the
+limit (the reference routes it to the candidate and dense executors,
+whose slot column is rounded there).
 
 Device work is asynchronous on CUDA: a batch's groups are enqueued
 back to back, their packed results are concatenated on the device and
@@ -56,11 +61,13 @@ _PURE_OR_ROOT = Expr.leaf("<batched-pure-or>")
 _ALGO_BY_NAME = {"BM25": ALGO_BM25, "TF-IDF": ALGO_TFIDF}
 
 # Executor-path counters (observability; reset freely).  Keys:
-# prefix / prefix_exact / sliced / sliced_head / blockdense count
-# QUERIES routed through each path, sliced_masked / sliced_masked_rows
-# the masked sliced rows and those of them on the masked dense-row
-# hybrid; coalesced / coalesced_pf count rows merged into widened
-# groups.
+# prefix / prefix_exact / sliced / sliced_head / blockdense /
+# candidate / dense count QUERIES routed through each path,
+# prefix_fallback the uncertified prefix rows re-run classically and
+# prefix_spec_used those a speculative twin answered, sliced_masked /
+# sliced_masked_rows the masked sliced rows and those of them on the
+# masked dense-row hybrid; coalesced / coalesced_pf count rows merged
+# into widened groups.
 EXEC_STATS: dict[str, int] = {}
 
 
@@ -286,11 +293,21 @@ _PREFIX_M_RUNGS = (32, 128, 1024)
 _PREFIX_LIMIT_MAX = _PREFIX_M_RUNGS[-1]
 
 
+def _prefix_m(sp: "SearchParams", r: int) -> int:
+    """Rescore depth of one prefix dispatch: R = 0 groups pass the
+    floor (their complete-plane branch never reads M); R > 0 groups
+    take the ladder rung covering the requested limit, so the
+    certificate covers every returned row."""
+    if r == 0:
+        return _PREFIX_M
+    return _ladder(min(sp.limit, _PREFIX_LIMIT_MAX), _PREFIX_M_RUNGS)
+
+
 # Wide terms in a prefix plan default OFF (the reference found R > 0
 # certification rarely succeeds: every near-tied plane doc is granted
-# the whole missing tail).  Wide rows plan classically up front; R > 0
-# plans (NXS_PREFIX_MAX_WIDE > 0) reach prefix_topk's R > 0 branch,
-# which this port does not carry yet.
+# the whole missing tail).  Wide rows plan classically up front; with
+# NXS_PREFIX_MAX_WIDE > 0 they plan R > 0 prefix rows, and those that
+# do not certify re-run classically.
 _PREFIX_MAX_WIDE = int(os.environ.get("NXS_PREFIX_MAX_WIDE", "0"))
 
 
@@ -1317,12 +1334,6 @@ def _kernel_crows(dev, plan: _Plan,
     return q_crow
 
 
-def _route_error(plan: _Plan) -> str:
-    return ("query routes to the candidate/dense executor (a masked "
-            "query of more than 32 terms, or 2**24 slots or more), which "
-            "is not ported")
-
-
 def _upload(dev, buf: np.ndarray) -> torch.Tensor:
     """One host->device copy of a group's packed int32 inputs."""
     return torch.from_numpy(buf).to(dev.device)
@@ -1331,16 +1342,75 @@ def _upload(dev, buf: np.ndarray) -> torch.Tensor:
 def _dispatch_prefix(dev, sl_start, sl_len, sl_idf, pf_bits, pf_tail,
                      pf_start, pf_len, pf_idf, *, sp: SearchParams,
                      k: int, n_run: int, T: int):
-    """Dispatch one impact-prefix group ([n, qs] plan arrays); returns
-    the packed device result f32[n, 3, k']."""
+    """Dispatch one impact-prefix group ([n, qs] plan arrays, [n, R]
+    wide-term arrays); returns the packed device result f32[n, 3, k']
+    whose exact flags certify the first min(limit, k) rows."""
     from .ops.executor import pack_prefix_group, prefix_topk_packed
     buf = pack_prefix_group(sl_start, sl_len, sl_idf, pf_bits, pf_tail,
                             pf_start, pf_len, pf_idf)
+    r = pf_tail.shape[1]
     return prefix_topk_packed(
         dev.postings_pack, dev.alive_mask, _upload(dev, buf), dev.adl_dev,
-        qs=sl_start.shape[1], R=pf_tail.shape[1], T=T, k=k,
+        qs=sl_start.shape[1], R=r, T=T, k=k, M=_prefix_m(sp, r),
         algo=sp.algo, n_slots=dev.n_slots, alive_all=dev.alive_all,
-        n_run=n_run)
+        n_run=n_run, k_ret=min(sp.limit, k))
+
+
+def _plain_inputs(dev, plans: list, n_pad: int) -> tuple:
+    """The candidate / dense executors' arguments for plans of one
+    ``batch_key``, rows padded to ``n_pad`` (zero-length ranges score
+    nothing): the snapshot's columns, then q_start, q_len, q_idf, adl,
+    prog_ops and prog_args on the device."""
+    sample = plans[0]
+    q_pad = sample.q_start.shape[-1]
+    prog_len = len(sample.prog_ops)
+    q_start = np.zeros((n_pad, q_pad), dtype=np.int32)
+    q_len = np.zeros((n_pad, q_pad), dtype=np.int32)
+    q_idf = np.zeros((n_pad, q_pad), dtype=np.float32)
+    prog_ops = np.zeros((n_pad, prog_len), dtype=np.int32)
+    prog_args = np.zeros((n_pad, prog_len), dtype=np.int32)
+    for row, p in enumerate(plans):
+        q_start[row] = p.q_start
+        q_len[row] = p.q_len
+        q_idf[row] = p.q_idf
+        prog_ops[row] = p.prog_ops
+        prog_args[row] = p.prog_args
+
+    def put(a):
+        return torch.from_numpy(a).to(dev.device)
+
+    return (dev.postings_slot, dev.postings_ltf, dev.doc_len,
+            dev.alive_mask, put(q_start), put(q_len), put(q_idf),
+            dev.adl_dev, put(prog_ops), put(prog_args))
+
+
+def _dispatch_plain(dev, plans: list, sp: SearchParams, k: int,
+                    n_pad: int):
+    """Dispatch one candidate or dense group (plans of one
+    ``batch_key``); returns the packed device result f32[n_pad, 2, k']
+    in the sliced layout.  Refused from 2**24 slots: the slot column
+    these executors read is derived from the f32 pack, where odd slots
+    past 2**24 round onto their neighbours."""
+    from .ops.executor import device_search_batch, device_search_dense_batch
+    if dev.n_slots >= (1 << 24):
+        raise NxsError(ErrorCode.LIMIT, (
+            f"index of {dev.n_slots} device slots: the port serves "
+            f"snapshots below 2**24 slots only (slots ride in an f32 "
+            f"column)"))
+    sample = plans[0]
+    kw = dict(budget=sample.budget, k=k, algo=sp.algo,
+              use_mask=sample.use_mask, depth=sample.depth)
+    if sample.use_dense:
+        fn = device_search_dense_batch
+        kw.update(n_slots=dev.n_slots, term_lens=np.max(
+            [p.q_len for p in plans], axis=0).tolist())
+    else:
+        fn = device_search_batch
+    scores, slots = fn(*_plain_inputs(dev, plans, n_pad), **kw)
+    # Non-matches may carry the padding sentinel; zero them, as the
+    # sliced result does.
+    return torch.stack([scores, torch.where(scores > 0.0, slots, 0)
+                        .to(torch.float32)], dim=1)
 
 
 def _dispatch_sliced_single(dev, plan: _Plan, sp: SearchParams, k: int):
@@ -1418,24 +1488,46 @@ def _dispatch_blockdense(dev, plans: list, sp: SearchParams, k: int,
         use_rows=sample.use_rows)
 
 
-def execute_query(dev, query: Query, sp: SearchParams) -> Response:
-    """Run one prepared query against the device snapshot."""
+def execute_query(dev, query: Query, sp: SearchParams,
+                  no_prefix: bool = False) -> Response:
+    """Run one prepared query against the device snapshot
+    (``no_prefix``: plan classically, as an uncertified prefix row's
+    re-run does)."""
     from .ops.executor import unpack_prefix, unpack_sliced
-    plan = _build_plan(dev, query, sp)
+    plan = _build_plan(dev, query, sp, no_prefix=no_prefix)
     if plan is None:
         return Response()
     k = _bucket(min(sp.limit, dev.n_slots), _MIN_K)
     if plan.pf:
-        packed = _dispatch_prefix(
+        packed = [_dispatch_prefix(
             dev, plan.sl_start[None], plan.sl_len[None], plan.sl_idf[None],
             plan.pf_bits[None], plan.pf_tail[None], plan.pf_start[None],
             plan.pf_len[None], plan.pf_idf[None], sp=sp, k=k,
-            n_run=plan.n_run, T=plan.sl_T)
-        scores, slots, _exact = unpack_prefix(packed.cpu().numpy())
+            n_run=plan.n_run, T=plan.sl_T)]
         _count("prefix")
-        _count("prefix_exact")
+        cplan = None
+        if len(plan.pf_tail):
+            # Wide terms: the certificate can fail, so the classic twin
+            # runs speculatively beside it and both come back in one
+            # device->host copy.
+            cplan = _build_plan(dev, query, sp, no_prefix=True)
+            if cplan is not None and _use_sliced(cplan, False, dev):
+                packed.append(_dispatch_sliced_single(dev, cplan, sp, k))
+        arrays = _fetch_finish(_fetch_start(packed))
+        scores, slots, exact = unpack_prefix(arrays[0])
+        if exact[0]:
+            _count("prefix_exact")
+            return _to_response(dev, scores[0], slots[0], sp.limit,
+                                delta=_delta_results(dev, plan, sp))
+        _count("prefix_fallback")
+        if len(arrays) == 1:
+            # No twin was eligible: the classic plan is exact.
+            return execute_query(dev, query, sp, no_prefix=True)
+        _count("prefix_spec_used")
+        _count_sliced(1, cplan.h_T, cplan.use_mask, cplan.use_rows)
+        scores, slots = unpack_sliced(arrays[1])
         return _to_response(dev, scores[0], slots[0], sp.limit,
-                            delta=_delta_results(dev, plan, sp))
+                            delta=_delta_results(dev, cplan, sp))
     if _use_sliced(plan, False, dev):
         packed = _dispatch_sliced_single(dev, plan, sp, k)
         scores, slots = unpack_sliced(packed.cpu().numpy())
@@ -1450,7 +1542,13 @@ def execute_query(dev, query: Query, sp: SearchParams) -> Response:
         _count("blockdense")
         return _to_response(dev, scores[0], slots[0], sp.limit,
                             delta=_delta_results(dev, plan, sp))
-    raise NotImplementedError(_route_error(plan))
+    # The candidate or dense executor (uncounted here, as in the
+    # reference's single-query path).
+    packed = _dispatch_plain(dev, [plan], sp, k, 1)
+    dev.drop_legacy_cols()
+    scores, slots = unpack_sliced(packed.cpu().numpy())
+    return _to_response(dev, scores[0], slots[0], sp.limit,
+                        delta=_delta_results(dev, plan, sp))
 
 
 @dataclass
@@ -1464,6 +1562,9 @@ class _PendingBatch:
     fetch: tuple           # (host tensor, copy-done event, shapes)
     t_dispatch: float
     t_submitted: float
+    # The prepared queries: uncertified prefix rows re-plan classically
+    # from them at collect time.
+    queries: list = None
 
 
 def execute_query_batch(dev, queries: list[Query],
@@ -1628,17 +1729,62 @@ def submit_query_batch(dev, queries: list[Query],
 
 
 # Per-dispatch plane caps (lanes): narrow planes 2**26, wide planes
-# (qs > 64) 2**24; dense-row hybrids and blockdense groups bound their
-# [N, S_pad] planes (scores, presence bits, the program's stack) by the
-# reference's blockdense cap.
+# (qs > 64) 2**24, candidate / dense planes 2**26 lanes of postings
+# budget; dense-row hybrids, blockdense and dense groups also bound
+# their [N, S_pad] planes (scores, presence bits, the program's stack)
+# by the reference's blockdense cap.
 _ELEMS_CAP = 1 << 26
 _WIDE_ELEMS_CAP = 1 << 24
 _BD_ELEMS_CAP = 1 << 26
 
 
+def _group_key(plan: _Plan, dev) -> tuple:
+    """The dispatch group of one plan: its route and static shape
+    (candidate / dense plans: ``batch_key``, whose first field is an
+    int)."""
+    if plan.pf:
+        return ("pf", len(plan.sl_start), plan.sl_T, len(plan.pf_tail),
+                plan.n_run)
+    if _use_sliced(plan, False, dev):
+        # Wide planes (qs > 64) quantize n_run onto a ladder, as in the
+        # reference (extra passes are exact no-ops).
+        n_run_k = plan.n_run
+        if len(plan.sl_start) > 64 and n_run_k > 0:
+            n_run_k = _ladder(n_run_k, (4, 16, 128))
+        return ("sl", len(plan.sl_start), plan.sl_T,
+                len(plan.prog_ops) if plan.use_mask else 0,
+                plan.use_mask, plan.depth, plan.single, plan.use_rows,
+                plan.h_T, n_run_k)
+    if _use_blockdense(plan, False, dev.n_slots):
+        # The block kernel's signature has no postings budget.
+        return ("bd", plan.q_start.shape[-1], len(plan.prog_ops),
+                plan.use_mask, plan.depth, plan.use_rows)
+    return plan.batch_key
+
+
+def _group_rows_cap(dev, key: tuple) -> int:
+    """Most rows one dispatch of group ``key`` may hold, so its planes
+    stay bounded in device memory (the reference's caps; dense groups
+    also under the blockdense cap, since they hold [N, S_pad])."""
+    bd_max_n = max(1, _BD_ELEMS_CAP // max(dev.n_slots, 1))
+    if key[0] == "bd":
+        return bd_max_n
+    if not isinstance(key[0], str):        # candidate / dense
+        _q, _L, _mask, use_dense, budget, _depth = key
+        max_n = max(1, _ELEMS_CAP // max(budget, 1))
+        return min(max_n, bd_max_n) if use_dense else max_n
+    elems = max(key[1] * key[2] + (key[8] if key[0] == "sl" else 0), 1)
+    cap_l = _WIDE_ELEMS_CAP if key[1] > 64 else _ELEMS_CAP
+    max_n = max(1, cap_l // elems)
+    if key[0] == "sl" and key[7]:          # use_rows
+        max_n = min(max_n, bd_max_n)
+    return max_n
+
+
 def _submit_plans(dev, plans: list, queries: list[Query],
                   sp: SearchParams) -> _PendingBatch:
-    """Group and dispatch already-built plans (pf, sl and bd routes)."""
+    """Group and dispatch already-built plans (pf, sl, bd, candidate and
+    dense routes)."""
     from .ops.executor import pack_sliced_group, sliced_topk_packed
 
     responses: list[Optional[Response]] = [
@@ -1646,46 +1792,15 @@ def _submit_plans(dev, plans: list, queries: list[Query],
     k = _bucket(min(sp.limit, dev.n_slots), _MIN_K)
     groups: dict[tuple, list[int]] = {}
     for i, plan in enumerate(plans):
-        if plan is None:
-            continue
-        if plan.pf:
-            key = ("pf", len(plan.sl_start), plan.sl_T,
-                   len(plan.pf_tail), plan.n_run)
-        elif _use_sliced(plan, False, dev):
-            # Wide planes (qs > 64) quantize n_run onto a ladder, as in
-            # the reference (extra passes are exact no-ops).
-            n_run_k = plan.n_run
-            if len(plan.sl_start) > 64 and n_run_k > 0:
-                n_run_k = _ladder(n_run_k, (4, 16, 128))
-            key = ("sl", len(plan.sl_start), plan.sl_T,
-                   len(plan.prog_ops) if plan.use_mask else 0,
-                   plan.use_mask, plan.depth, plan.single, plan.use_rows,
-                   plan.h_T, n_run_k)
-        elif _use_blockdense(plan, False, dev.n_slots):
-            # The block kernel's signature has no postings budget.
-            key = ("bd", plan.q_start.shape[-1], len(plan.prog_ops),
-                   plan.use_mask, plan.depth, plan.use_rows)
-        else:
-            raise NotImplementedError(_route_error(plan))
-        groups.setdefault(key, []).append(i)
+        if plan is not None:
+            groups.setdefault(_group_key(plan, dev), []).append(i)
 
     groups = _coalesce_sliced_groups(groups, plans)
     groups = _coalesce_prefix_groups(groups, plans)
 
-    # Chunk groups so one dispatch's plane stays bounded in device
-    # memory (same caps as the reference).
     chunked: list[tuple[tuple, list[int]]] = []
-    bd_max_n = max(1, _BD_ELEMS_CAP // max(dev.n_slots, 1))
     for key, members in groups.items():
-        if key[0] == "bd":
-            max_n = bd_max_n
-        else:
-            elems = max(key[1] * key[2]
-                        + (key[8] if key[0] == "sl" else 0), 1)
-            cap_l = _WIDE_ELEMS_CAP if key[1] > 64 else _ELEMS_CAP
-            max_n = max(1, cap_l // elems)
-            if key[0] == "sl" and key[7]:          # use_rows
-                max_n = min(max_n, bd_max_n)
+        max_n = _group_rows_cap(dev, key)
         for at in range(0, len(members), max_n):
             chunked.append((key, members[at: at + max_n]))
 
@@ -1727,6 +1842,12 @@ def _submit_plans(dev, plans: list, queries: list[Query],
                 dev, [plans[i] for i in members], sp, k, _row_pad(n))
             _count("blockdense", n)
             pending.append((members, packed, "bd"))
+            continue
+        if not isinstance(key[0], str):
+            packed = _dispatch_plain(dev, [plans[i] for i in members], sp,
+                                     k, _row_pad(n))
+            _count("dense" if key[3] else "candidate", n)
+            pending.append((members, packed, "plain"))
             continue
         # Group params come from the KEY: coalesced groups carry
         # widened maxima there, and member rows re-pad below.
@@ -1807,14 +1928,15 @@ def _submit_plans(dev, plans: list, queries: list[Query],
         _count_sliced(n, t_head, use_mask_g, use_rows_g)
         pending.append((members, packed, "sliced"))
 
-    if any(tag == "bd" for _m, _p, tag in pending):
-        # A blockdense group read the derived slot / ltf columns.
+    if any(tag in ("bd", "plain") for _m, _p, tag in pending):
+        # A blockdense, candidate or dense group read the derived slot /
+        # ltf columns.
         dev.drop_legacy_cols()
     fetch = _fetch_start([p[1] for p in pending]) if pending else None
     return _PendingBatch(plans=plans, responses=responses,
                          pending=pending, fetch=fetch,
                          t_dispatch=t_dispatch,
-                         t_submitted=time.perf_counter())
+                         t_submitted=time.perf_counter(), queries=queries)
 
 
 def _fetch_start(results: list) -> tuple:
@@ -1850,24 +1972,42 @@ def _fetch_finish(fetch: tuple) -> list[np.ndarray]:
     return out
 
 
-def collect_query_batch(dev, st: _PendingBatch,
-                        sp: SearchParams) -> list[Response]:
-    """Wait for a submitted batch's results and build responses."""
+def collect_query_batch(dev, st: _PendingBatch, sp: SearchParams,
+                        defer_fallback: bool = False):
+    """Wait for a submitted batch's results and build responses.
+
+    Uncertified prefix rows re-run as one classic sub-batch.  With
+    ``defer_fallback=True`` they are not re-run here: the call returns
+    ``(responses, fallback_ix)`` and the caller passes them through
+    ``_submit_fallback`` / ``_finish_fallback`` (the pipelined loop
+    submits that sub-batch before the next batch's groups)."""
     from .ops.executor import unpack_prefix, unpack_sliced
 
     t_fetch = time.perf_counter()
     arrays = _fetch_finish(st.fetch) if st.fetch is not None else []
     t_resp = time.perf_counter()
+    fallback_ix: list[int] = []
     for (members, _packed, tag), arr in zip(st.pending, arrays):
         n = len(members)
         if tag == "prefix":
             scores, slots, exact = unpack_prefix(arr)
-            # R = 0 planes are complete: exact by construction.
-            _count("prefix_exact", int(exact[:n].sum()))
-        else:               # sliced and blockdense: one [N, 2, k] layout
+            ok = exact[:n]
+            _count("prefix_exact", int(ok.sum()))
+            scores, slots = scores[:n], slots[:n]
+            if not ok.all():
+                fallback_ix.extend(members[r] for r in np.nonzero(~ok)[0])
+                members = [i for r, i in enumerate(members) if ok[r]]
+                scores, slots = scores[ok], slots[ok]
+        else:
+            # Every other route shares the sliced [N, 2, k] layout.
             scores, slots = unpack_sliced(arr)
-        _to_responses_group(dev, members, scores[:n], slots[:n],
-                            st.plans, sp, st.responses)
+            scores, slots = scores[:n], slots[:n]
+        _to_responses_group(dev, members, scores, slots, st.plans, sp,
+                            st.responses)
+    if fallback_ix and not defer_fallback:
+        _finish_fallback(dev, _submit_fallback(dev, st, fallback_ix, sp),
+                         fallback_ix, sp, st.responses)
+        fallback_ix = []
     log = _trace_logger()
     if log.isEnabledFor(10):      # logging.DEBUG
         log.debug("batch.exec: %d groups, dispatch %.1f ms, fetch %.1f "
@@ -1875,7 +2015,30 @@ def collect_query_batch(dev, st: _PendingBatch,
                   (st.t_submitted - st.t_dispatch) * 1e3,
                   (t_resp - t_fetch) * 1e3,
                   (time.perf_counter() - t_resp) * 1e3)
+    if defer_fallback:
+        return st.responses, fallback_ix
     return st.responses
+
+
+def _submit_fallback(dev, st: _PendingBatch, fallback_ix: list[int],
+                     sp: SearchParams) -> _PendingBatch:
+    """Dispatch one classic sub-batch covering every uncertified prefix
+    row (pair with _finish_fallback)."""
+    _count("prefix_fallback", len(fallback_ix))
+    fb_st = submit_query_batch(dev, [st.queries[i] for i in fallback_ix],
+                               sp, no_prefix=True)
+    # A no-prefix batch must never hold a prefix group: a leak would
+    # recurse without bound.
+    assert not any(tag == "prefix" for _m, _p, tag in fb_st.pending), \
+        "no_prefix planning leaked a prefix plan"
+    return fb_st
+
+
+def _finish_fallback(dev, fb_st: _PendingBatch, fallback_ix: list[int],
+                     sp: SearchParams, responses: list) -> None:
+    """Collect a fallback sub-batch into the main responses."""
+    for i, resp in zip(fallback_ix, collect_query_batch(dev, fb_st, sp)):
+        responses[i] = resp
 
 
 @functools.lru_cache(maxsize=1)
@@ -2092,8 +2255,17 @@ def search_many_pipelined(dev, pipeline, batches: list[list[str]],
         with phase("pipeline.submit"):
             st = submit_query_batch(dev, prepared, sp)
         if prev_st is not None:
+            # Batch i-1's uncertified prefix rows go out as one classic
+            # sub-batch, which queues behind batch i's groups.
             with phase("pipeline.collect"):
-                out[prev_i] = collect_query_batch(dev, prev_st, sp)
+                resp_prev, fb_ix = collect_query_batch(
+                    dev, prev_st, sp, defer_fallback=True)
+                fb_st = _submit_fallback(dev, prev_st, fb_ix, sp) \
+                    if fb_ix else None
+            with phase("pipeline.fallback"):
+                if fb_st is not None:
+                    _finish_fallback(dev, fb_st, fb_ix, sp, resp_prev)
+                out[prev_i] = resp_prev
         prev_st, prev_i = st, i
     if prev_st is not None:
         with phase("pipeline.collect"):

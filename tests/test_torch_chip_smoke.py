@@ -1,5 +1,6 @@
 """chip_smoke.py's host-side helpers that run without a card: the SASS
-instruction count behind the Myers kernels' bound, and the bound."""
+instruction count behind the Myers kernels' bound, and the bound; and
+a rehearsal of the fallback-routes phase on the CPU at a small size."""
 
 import pytest
 import torch
@@ -121,3 +122,47 @@ def test_myers_variants_change_one_declaration(source, name):
     assert len(changed) == 1 and f"int {name} =" in changed[0][0]
     with pytest.raises(SystemExit):
         mv.apply_changes(SOURCE, {"kNoSuchConstant": "1"}, source)
+
+
+def test_fallback_phase_rehearsal(tmp_path, monkeypatch):
+    """The fallback-routes phase on a small CPU index: the dense route
+    serves every > 32-term query and agrees with the boolean oracle,
+    search_many with the other routers off answers like the default
+    routes on the candidate executor, and the R > 0 prefix rows (small
+    impact-prefix thresholds) answer like the MAX_WIDE = 0 ones, some
+    certified and some falling back, with the captured R > 0 groups
+    replayed."""
+    import bench
+    from nxsearch_tpu_torch import Nxs, Params
+    from nxsearch_tpu_torch import search as psearch
+    from nxsearch_tpu_torch.index.device import DeviceIndex
+
+    for name, value in {"N_DOCS": 3000, "VOCAB": 6000, "N_DENSE": 12,
+                        "N_DENSE_ORACLE": 4, "N_MIXED": 96, "N_CAND": 96,
+                        "N_WIDE": 96, "WIDE_BATCH": 32,
+                        "N_WIDE_SINGLE": 8}.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(DeviceIndex, "PREFIX_CAP", 64)
+    monkeypatch.setattr(DeviceIndex, "WIDE_MIN_DF", 64)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
+    nxs = Nxs(str(tmp_path), device="cpu")
+    idx = nxs.index_create("bench")
+    idx.add_many(bench.zipf_range(0, 3000, 6000, 20))
+    sp = Params().set_uint("limit", 10)
+    idx.search("w00001", sp)                  # builds the snapshot
+    try:
+        out = chip_smoke.fallback_phase(idx, sp, chip_smoke.HostOracle(idx),
+                                        "a card, 700 W")
+    finally:
+        nxs.close()
+    assert out["dense"]["rows"] == 12
+    assert out["candidate"]["rows"] > 0
+    wide = out["prefix_wide"]
+    stats = wide["stats"]
+    assert stats["prefix"] > 0 and stats["prefix_fallback"] > 0
+    assert 0 < wide["certified_wide"] <= wide["plans_wide"]
+    assert wide["replayed"] > 0 and wide["replay_max_abs_err"] == 0.0
+    assert wide["region"]["wide_terms"] > 0
+    for name in ("_prefix_mode", "_use_sliced", "_use_blockdense"):
+        assert getattr(psearch, name).__name__ == name     # restored
+    assert psearch._PREFIX_MAX_WIDE == 0      # restored

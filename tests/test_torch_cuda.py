@@ -373,6 +373,133 @@ def test_segsum_wrapper_rejects_bad_inputs():
                                   coef, algo=0, use_mask=True)
 
 
+def _zipf_pair(tmp_path, vocab=6000):
+    """(CPU index, card index) over one basedir of 3000 Zipf documents,
+    and the vocabulary with its probabilities."""
+    import bench
+    from nxsearch_tpu_torch import Nxs
+
+    cpu = Nxs(str(tmp_path), device="cpu")
+    idx_c = cpu.index_create("t")
+    idx_c.add_many(bench.zipf_range(0, 3000, vocab, 20))
+    gpu = Nxs(str(tmp_path), device="cuda")
+    idx_g = gpu.index_open("t")
+    words = np.array([f"w{i:05d}" for i in range(vocab)])
+    probs = 1.0 / (np.arange(vocab) + 10.0)
+    return cpu, idx_c, gpu, idx_g, words, probs / probs.sum()
+
+
+def _wide_masked(words, rng, n):
+    """Masked queries of 33-48 unique terms (the dense executor)."""
+    out = []
+    for i in range(n):
+        ws = [str(w) for w in words[rng.choice(
+            len(words) // 4, int(rng.integers(33, 49)), replace=False)]]
+        out.append(f"({' OR '.join(ws[:-1])}) AND NOT {ws[-1]}" if i % 2
+                   else f"({' OR '.join(ws[:20])}) AND "
+                        f"({' OR '.join(ws[20:])})")
+    return out
+
+
+def _same_bits(a, b):
+    """Two passes' responses identical: ids and scores bit for bit."""
+    assert [r.results for r in a] == [r.results for r in b]
+
+
+def test_dense_route_on_card_matches_cpu(tmp_path):
+    """> 32-term masked queries take the dense executor on the card (the
+    packed bitmaps, the program, the dense per-slot row); two passes
+    agree bit for bit, and the answers match the CPU's."""
+    _need_card()
+    from nxsearch_tpu_torch import Params
+    from nxsearch_tpu_torch import search as psearch
+
+    cpu, idx_c, gpu, idx_g, words, _probs = _zipf_pair(tmp_path)
+    queries = _wide_masked(words, np.random.default_rng(3), 24)
+    psearch.EXEC_STATS.clear()
+    got = idx_g.search_many(queries, Params().set_uint("limit", 10))
+    assert psearch.EXEC_STATS.get("dense", 0) == len(queries)
+    _same_bits(got, idx_g.search_many(queries,
+                                      Params().set_uint("limit", 10)))
+    want = idx_c.search_many(queries, Params().set_uint("limit", 11))
+    for q, w, g in zip(queries, want, got):
+        _assert_same(w, g, q)
+    assert sum(len(g.results) for g in got) > 0
+    for q in queries[:4]:
+        _assert_same(idx_c.search(q, Params().set_uint("limit", 11)),
+                     idx_g.search(q, Params().set_uint("limit", 10)), q)
+    gpu.close()
+    cpu.close()
+
+
+def test_candidate_route_on_card_matches_cpu(tmp_path, monkeypatch):
+    """With the blockdense route and the masked hybrid off, the plans
+    the prefix and sliced routes refuse take the candidate executor on
+    the card; two passes agree bit for bit, the answers match the
+    CPU's."""
+    _need_card()
+    import bench
+    from nxsearch_tpu_torch import Params
+    from nxsearch_tpu_torch import search as psearch
+
+    monkeypatch.setattr(psearch, "_use_blockdense", lambda *a, **kw: False)
+    monkeypatch.setattr(psearch, "_MASKED_HYBRID", False)
+    cpu, idx_c, gpu, idx_g, words, probs = _zipf_pair(tmp_path)
+    rng = np.random.default_rng(4)
+    queries = bench.make_mixed_queries(200, words, probs, rng)
+    for i in range(24):
+        h, a, b = words[i % 10], words[40 + i], words[90 + 2 * i]
+        queries += [f"{h} AND {a}", f"{a} {b} AND NOT {h}"]
+    psearch.EXEC_STATS.clear()
+    got = idx_g.search_many(queries, Params().set_uint("limit", 10))
+    assert psearch.EXEC_STATS.get("candidate", 0) > 0
+    _same_bits(got, idx_g.search_many(queries,
+                                      Params().set_uint("limit", 10)))
+    want = idx_c.search_many(queries, Params().set_uint("limit", 11))
+    for q, w, g in zip(queries, want, got):
+        _assert_same(w, g, q)
+    gpu.close()
+    cpu.close()
+
+
+def test_prefix_wide_on_card_matches_cpu(tmp_path, monkeypatch):
+    """Impact-prefix plans with wide terms (R > 0) on the card: the
+    region is built at the snapshot, uncertified rows re-run classically
+    (fallback sub-batch, speculative twin, deferred pipelined
+    fallback), and every answer matches the CPU's."""
+    _need_card()
+    import bench
+    from nxsearch_tpu_torch import Params
+    from nxsearch_tpu_torch import search as psearch
+    from nxsearch_tpu_torch.index.device import DeviceIndex
+
+    monkeypatch.setattr(DeviceIndex, "PREFIX_CAP", 64)
+    monkeypatch.setattr(DeviceIndex, "WIDE_MIN_DF", 64)
+    monkeypatch.setattr(psearch, "_PREFIX_MAX_WIDE", 4)
+    cpu, idx_c, gpu, idx_g, words, probs = _zipf_pair(tmp_path)
+    queries = bench.make_queries(240, words, probs,
+                                 np.random.default_rng(5))
+    psearch.EXEC_STATS.clear()
+    sp10 = Params().set_uint("limit", 10)
+    got = idx_g.search_many(queries, sp10)
+    got += [r for b in idx_g.search_pipelined(
+        [queries[i: i + 60] for i in range(0, 240, 60)], sp10) for r in b]
+    got += [idx_g.search(q, sp10) for q in queries[:12]]
+    stats = psearch.EXEC_STATS
+    assert idx_g.dev.prefix_stats["wide_terms"] > 0
+    assert stats.get("prefix_fallback", 0) > 0, stats
+    assert stats.get("prefix_spec_used", 0) > 0, stats
+    sp11 = Params().set_uint("limit", 11)
+    want = idx_c.search_many(queries, sp11)
+    want += [r for b in idx_c.search_pipelined(
+        [queries[i: i + 60] for i in range(0, 240, 60)], sp11) for r in b]
+    want += [idx_c.search(q, sp11) for q in queries[:12]]
+    for q, w, g in zip(queries + queries + queries[:12], want, got):
+        _assert_same(w, g, q)
+    gpu.close()
+    cpu.close()
+
+
 @pytest.mark.parametrize("hybrid", [True, False])
 def test_masked_search_on_card_matches_cpu(tmp_path, monkeypatch, hybrid):
     """bench's mixed trace plus boolean queries over the dense-row terms,
