@@ -7,10 +7,10 @@ single-query Myers kernels, boolean (AND / NOT) search on the masked
 sliced route and on the blockdense route, and the fallback routes
 (the dense and candidate executors, impact-prefix plans with wide
 terms) -- at the benchmark's 1M-document tier, through the entry
-points a user calls (Nxs,
-Index.add_many, search, search_pipelined, search_many), and checks
-every hand-written kernel of those paths against its plain PyTorch
-twin.  Phases (any failure exits non-zero and prints no result):
+points a user calls (Nxs, Index.add_many, search, search_pipelined,
+search_many, parallel_ingest, the REST service in process and as
+``python -m``, the benchmark CLI), and checks every hand-written
+kernel of those paths against its plain PyTorch twin.  Phases (any failure exits non-zero and prints no result):
 
 1. card check and kernel build: needs torch.cuda; prints the card's
    name and power limit; builds csrc/*.cu with nvcc (first use), one
@@ -94,7 +94,40 @@ twin.  Phases (any failure exits non-zero and prints no result):
    counted from ``_build_plans``), search_many's R > 0
    ``prefix_topk_packed`` groups replayed on the CPU and equal, the
    prefix / prefix_exact / prefix_fallback / prefix_spec_used counters
-   and the region's wide terms, bytes and build seconds.
+   and the region's wide terms, bytes and build seconds;
+11. parallel ingest phase: nxsearch_tpu_torch.parallel_ingest of the
+   same tier into a second basedir (bench.zipf_range through
+   functools.partial, min(8, cpu count) spawned workers, each on the
+   CPU); seconds and docs/s beside phase 3's serial add_many; doc,
+   term and token counts equal phase 3's; the new index opened on the
+   card and 64 sampled make_queries answered through search_many equal
+   phase 3's (scores in rank order within 1e-4, ids up to ties within
+   1e-4: parallel ingest gives documents other slots); then closed and
+   deleted;
+12. service phase: after a checkpoint of phase 3's index,
+   SearchService(workdir, device="cuda") in this process behind a
+   ThreadingHTTPServer on 127.0.0.1: a warm-up and a measured pass of
+   8 keep-alive clients POSTing /bench/search_batch?limit=10 with 256
+   of the 8192 make_queries per request (service QPS, request p50 /
+   p99; the route counters equal the library's on the same queries),
+   the same requests from one client and the library's search_many
+   over the same chunks on one thread (QPS of both), one request of
+   typos that builds the service handle's fuzzy matcher, 512 fresh
+   typo queries in requests of 256 (forward Myers launches
+   > 0), sequential /bench/search for 64 fresh typo and 64 plain
+   queries (p50 / p99; one single-query launch per distinct uncached
+   typo) and 64 make_mixed_queries rows; every answer equal to the
+   library handle's (same_answer), /bench/stats equal to phase 3's
+   counts, POST /~ answered 400, every other request 200;
+13. entry-point phase: python -m nxsearch_tpu_torch.service --device
+   cuda on a free port as a subprocess (ready within 300 s), one typo
+   /bench/search equal to the library's answer, then terminated; and
+   python -m nxsearch_tpu_torch.benchmark -s <query> --limit 10
+   --device cuda, exit 0 and its JSON equal to the library's answer;
+   their open seconds and the card memory the service took.
+
+Each phase logs its seconds and numbers beside the card's name and
+power limit, and the device memory it allocates.
 
 The next-to-last lines are the kernel table (JSON: per kernel its
 launches on its path, exactness, kernel / plain times, and its bound:
@@ -138,6 +171,13 @@ N_WIDE = 2048           # make_queries with wide prefix terms (R > 0)
 WIDE_BATCH = 512
 N_WIDE_SINGLE = 64
 PASSES = 3              # measured passes (median reported)
+INGEST_WORKERS = 8      # parallel ingest: min(this, os.cpu_count())
+N_PAR_CHECK = 64        # parallel build's answers held to phase 3's
+PAR_DEEP = 100          # ... ranked this deep (ties at the cut)
+SVC_CLIENTS = 8         # keep-alive HTTP clients (tools/bench_service.py)
+SVC_REQ = 256           # queries per /search_batch request
+N_SEQ = 64              # sequential typo, plain and boolean requests
+SVC_OPEN_LIMIT_S = 300  # a subprocess service must answer within this
 TOL = 1e-4               # score tolerance of the reference's own tests
 
 # The card's peak rates for the kernels' bounds: HBM3 bytes per second
@@ -429,8 +469,9 @@ def batched_at_one(vb, vl, qb, ql):
     from nxsearch_tpu_torch.ops import kernels
 
     out = torch.empty((1, vb.shape[0]), dtype=torch.int32, device=vb.device)
-    kernels.MYERS.launch(vb.data_ptr(), vl.data_ptr(), qb.data_ptr(),
-                         ql.data_ptr(), out.data_ptr(), vb.shape[0], 1)
+    kernels.MYERS.launch(vb.device, vb.data_ptr(), vl.data_ptr(),
+                         qb.data_ptr(), ql.data_ptr(), out.data_ptr(),
+                         vb.shape[0], 1)
     return out
 
 
@@ -868,6 +909,17 @@ def forget_typos(idx) -> None:
     idx._fuzzy._memo_cache = None
 
 
+def typos_of(idx, queries) -> set:
+    """The filtered words of ``queries`` that the dictionary lacks."""
+    out = set()
+    for q in queries:
+        for v in q.split():
+            f = idx.pipeline.run(v)
+            if f is not None and idx.host.term_lookup(f) is None:
+                out.add(f)
+    return out
+
+
 def rev_phase(idx, sp, oracle: HostOracle) -> dict:
     """Fuzzy search_many with the transposed sweep on, interleaved with
     forward passes; answers held to the forward route's and the
@@ -949,12 +1001,7 @@ def single_phase(idx, sp) -> dict:
     words, probs = vocab()
     queries = bench.make_fuzzy_queries(N_SINGLE, words, probs,
                                        np.random.default_rng(46), "h")
-    typos = set()
-    for q in queries:
-        for v in q.split():
-            f = idx.pipeline.run(v)
-            if f is not None and idx.host.term_lookup(f) is None:
-                typos.add(f)
+    typos = typos_of(idx, queries)
     reset_counts()
     times = []
     got = []
@@ -1427,6 +1474,446 @@ def boolean_oracle(oracle: HostOracle, mixed: dict, bd: dict) -> None:
     log(f"boolean oracle: {n} sampled masked queries agree")
 
 
+def percentile_ms(seconds, q: float) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(seconds) * 1e3, q))
+
+
+def up_to_ties(deep, got, q) -> None:
+    """``got`` (top 10) against ``deep`` (a deeper ranking of the same
+    query on another build of the corpus): scores in rank order within
+    TOL, and each id one that ``deep`` ranks with its score within TOL
+    -- or, past the end of ``deep``, one whose score ties its last."""
+    ref = dict(deep.results)
+    sc_r = [s for _, s in deep.results]
+    ids_g = [d for d, _ in got.results]
+    if len(ids_g) != min(10, len(sc_r)) or len(set(ids_g)) != len(ids_g):
+        raise AssertionError(f"{q!r}: {got.results} vs {deep.results[:10]}")
+    for (d, s), want in zip(got.results, sc_r):
+        tied_past_end = (len(sc_r) == PAR_DEEP
+                         and abs(s - sc_r[-1]) <= TOL)
+        if abs(s - want) > TOL or not (
+                (d in ref and abs(ref[d] - s) <= TOL) or tied_past_end):
+            raise AssertionError(f"{q!r}: doc {d} score {s} vs "
+                                 f"{deep.results[:10]}")
+
+
+def parallel_ingest_phase(idx, sp, ingest_s: float, card: str,
+                          device: str = "cuda") -> dict:
+    """Phase 11: parallel_ingest of the same tier into a second basedir,
+    its counts and answers held to phase 3's index."""
+    import functools
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import bench
+    from nxsearch_tpu_torch import Nxs, Params, parallel_ingest
+
+    workers = min(INGEST_WORKERS, os.cpu_count() or 1)
+    pdir = tempfile.mkdtemp(prefix="nxs_parallel_")
+    try:
+        boot = Nxs(pdir, device="cpu")
+        boot.index_create("bench")
+        boot.close()
+        t0 = time.perf_counter()
+        parallel_ingest(pdir, "bench", functools.partial(
+            bench.zipf_range, vocab=VOCAB, mean_len=MEAN_LEN), N_DOCS,
+            workers=workers)
+        par_s = time.perf_counter() - t0
+        log(f"parallel ingest ({card}): {N_DOCS} docs, {workers} workers, "
+            f"{par_s} s, {N_DOCS / par_s} docs/s; serial add_many (phase "
+            f"3) {ingest_s} s, {N_DOCS / ingest_s} docs/s")
+        mem0 = torch.cuda.memory_allocated()
+        nxs = Nxs(pdir, device=device)
+        try:
+            t0 = time.perf_counter()
+            pidx = nxs.index_open("bench")
+            got_stats = pidx.stats()
+            open_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pidx.search("w00001", sp)            # builds the snapshot
+            torch.cuda.synchronize()
+            snap_s = time.perf_counter() - t0
+            mem = torch.cuda.memory_allocated() - mem0
+            want_stats = idx.stats()
+            for key in ("doc_count", "term_count", "token_count"):
+                if got_stats[key] != want_stats[key]:
+                    raise AssertionError(f"parallel ingest {key}: "
+                                         f"{got_stats} vs {want_stats}")
+            queries, _batches, _fuzzy = workload()
+            sample = [queries[int(i)] for i in np.random.default_rng(11)
+                      .choice(len(queries), N_PAR_CHECK, replace=False)]
+            got = pidx.search_many(sample, sp)
+            deep = idx.search_many(sample, Params().set_uint("limit",
+                                                             PAR_DEEP))
+            for q, d, g in zip(sample, deep, got):
+                up_to_ties(d, g, q)
+            check_finite(got)
+            del pidx
+        finally:
+            nxs.close()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(pdir)
+    log(f"parallel ingest ({card}): counts equal phase 3's "
+        f"({got_stats['doc_count']} docs, {got_stats['term_count']} terms, "
+        f"{got_stats['token_count']} tokens); "
+        f"open {open_s} s, snapshot {snap_s} s, {mem / 2**30} GiB "
+        f"allocated on the card; {N_PAR_CHECK} sampled answers equal "
+        "phase 3's up to ties")
+    return {"seconds": par_s, "docs_per_s": N_DOCS / par_s,
+            "workers": workers, "serial_seconds": ingest_s,
+            "open_s": open_s, "snapshot_s": snap_s, "device_gib": mem / 2**30}
+
+
+def http_json(conn, method: str, path: str, body=None):
+    """(status, decoded JSON body or None) of one request on a
+    keep-alive connection."""
+    conn.request(method, path, body=body)
+    r = conn.getresponse()
+    data = r.read()
+    return r.status, (json.loads(data) if data else None)
+
+
+def as_response(obj):
+    """A response body's results as a (doc_id, score) list holder, for
+    same_answer."""
+    from types import SimpleNamespace
+    return SimpleNamespace(results=[(r["doc_id"], r["score"])
+                                    for r in obj["results"]])
+
+
+def post_batches(port: int, queries: list[str], clients: int):
+    """POST /bench/search_batch?limit=10 from ``clients`` keep-alive
+    client threads, SVC_REQ queries per request: (seconds, request
+    latencies in s, the responses in query order, statuses)."""
+    import http.client
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    reqs = [queries[i: i + SVC_REQ] for i in range(0, len(queries), SVC_REQ)]
+    lock = threading.Lock()
+    todo = iter(range(len(reqs)))
+    out = [None] * len(reqs)
+    lats, statuses = [], []
+
+    def client():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            while True:
+                with lock:
+                    i = next(todo, None)
+                if i is None:
+                    return
+                body = json.dumps({"queries": reqs[i]}).encode()
+                t0 = time.perf_counter()
+                status, payload = http_json(
+                    conn, "POST", "/bench/search_batch?limit=10", body)
+                dt = time.perf_counter() - t0
+                with lock:
+                    lats.append(dt)
+                    statuses.append(status)
+                if status != 200 or len(payload["responses"]) != len(reqs[i]):
+                    raise AssertionError(f"search_batch: {status} {payload}")
+                out[i] = payload["responses"]
+        finally:
+            conn.close()
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        for f in [pool.submit(client) for _ in range(clients)]:
+            f.result()
+    return (time.perf_counter() - t0, lats,
+            [r for chunk in out for r in chunk], statuses)
+
+
+def route_counts() -> dict:
+    from nxsearch_tpu_torch import search as search_mod
+    return {key: search_mod.EXEC_STATS.get(key, 0) for key in (
+        "prefix", "sliced", "blockdense", "candidate", "dense")}
+
+
+def service_phase(workdir: str, idx, sp, card: str,
+                  device: str = "cuda") -> dict:
+    """Phase 12: SearchService over phase 3's basedir behind a
+    ThreadingHTTPServer in this process; batched, typo, sequential and
+    boolean traffic over HTTP, each answer held to the library
+    handle's."""
+    import http.client
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    import bench
+    from nxsearch_tpu_torch.service.app import SearchService, make_handler
+
+    words, probs = vocab()
+    queries, _batches, _fuzzy = workload()
+    rng = np.random.default_rng(48)
+    typo_batch = bench.make_fuzzy_queries(N_FUZZY, words, probs, rng, "k")
+    seq_typo = bench.make_fuzzy_queries(N_SEQ, words, probs, rng, "m")
+    seq_plain = bench.make_queries(N_SEQ, words, probs, rng)
+    mixed = bench.make_mixed_queries(N_SEQ, words, probs, rng)
+    typo_warm = bench.make_fuzzy_queries(SVC_REQ, words, probs, rng, "n")
+    statuses = []
+
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    svc = SearchService(workdir, device=device)
+
+    class Handler(make_handler(svc)):
+        def log_message(self, fmt, *args):    # no access log on stdout
+            pass
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    port = httpd.server_address[1]
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        status, stats = http_json(conn, "GET", "/bench/stats")
+        statuses.append(status)
+        open_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        status, _ = http_json(conn, "POST", "/bench/search", b"w00001")
+        statuses.append(status)
+        torch.cuda.synchronize()
+        snap_s = time.perf_counter() - t0
+        mem = torch.cuda.memory_allocated() - mem0
+        want_stats = idx.stats()
+        if status != 200 or any(stats[k] != want_stats[k] for k in (
+                "doc_count", "term_count", "token_count")):
+            raise AssertionError(f"/bench/stats: {stats} vs {want_stats}")
+
+        # Batched traffic: one warm-up pass, one measured pass.
+        statuses += post_batches(port, queries, SVC_CLIENTS)[3]
+        torch.cuda.synchronize()
+        reset_counts()
+        wall, lats, got, st = post_batches(port, queries, SVC_CLIENTS)
+        statuses += st
+        svc_routes = route_counts()
+        reset_counts()
+        want = idx.search_many(queries, sp)
+        lib_routes = route_counts()
+        for q, w, g in zip(queries, want, got):
+            same_answer(w, as_response(g), q)
+        if svc_routes != lib_routes or sum(svc_routes.values()) <= 0:
+            raise AssertionError(f"route counters: service {svc_routes}, "
+                                 f"library {lib_routes}")
+        qps = len(queries) / wall
+        p50, p99 = percentile_ms(lats, 50), percentile_ms(lats, 99)
+        log(f"service ({card}): {len(queries)} queries in requests of "
+            f"{SVC_REQ} from {SVC_CLIENTS} keep-alive clients: {qps} QPS, "
+            f"request p50 {p50} ms, p99 {p99} ms; routes {svc_routes} "
+            f"(the library's on the same queries: equal); open {open_s} s, "
+            f"snapshot {snap_s} s, {mem / 2**30} GiB allocated on the card")
+        # What the request threads cost: the same requests from one
+        # client, and the library on the same chunks on one thread.
+        wall, _lats, _got, st = post_batches(port, queries, 1)
+        statuses += st
+        qps_one = len(queries) / wall
+        t0 = time.perf_counter()
+        for i in range(0, len(queries), SVC_REQ):
+            idx.search_many(queries[i: i + SVC_REQ], sp)
+        lib_qps = len(queries) / (time.perf_counter() - t0)
+        log(f"service ({card}): the same requests from one client: "
+            f"{qps_one} QPS; library search_many over the same "
+            f"{SVC_REQ}-query chunks on one thread: {lib_qps} QPS")
+
+        # Batched typos, after one request of other typos builds the
+        # service handle's fuzzy matcher.
+        statuses += post_batches(port, typo_warm, SVC_CLIENTS)[3]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        _, _, got, st = post_batches(port, typo_batch, SVC_CLIENTS)
+        typo_s = time.perf_counter() - t0
+        statuses += st
+        typo_launches = myers_counts()
+        if typo_launches["fwd"] <= 0:
+            raise AssertionError(f"batched typos: no forward Myers launch "
+                                 f"({typo_launches})")
+        for q, w, g in zip(typo_batch, idx.search_many(typo_batch, sp), got):
+            same_answer(w, as_response(g), q)
+        log(f"service ({card}): {N_FUZZY} typo queries through "
+            f"search_batch: {N_FUZZY / typo_s} QPS; launches "
+            f"{typo_launches}")
+
+        # Sequential: one query per request, typos then plain queries.
+        seen = typos_of(idx, queries + typo_warm + typo_batch)
+        expect = typos_of(idx, seq_typo + seq_plain) - seen
+        reset_counts()
+        seq_s, got = [], []
+        for q in seq_typo + seq_plain:
+            t0 = time.perf_counter()
+            status, payload = http_json(conn, "POST", "/bench/search?limit=10",
+                                        q.encode())
+            seq_s.append(time.perf_counter() - t0)
+            statuses.append(status)
+            got.append(payload)
+        seq_launches = myers_counts()
+        if seq_launches != {"fwd": 0, "one": len(expect), "rev": 0} \
+                or not expect:
+            raise AssertionError(f"sequential: one single-query launch per "
+                                 f"distinct uncached typo ({len(expect)}) "
+                                 f"expected: {seq_launches}")
+        for q, w, g in zip(seq_typo + seq_plain,
+                           idx.search_many(seq_typo + seq_plain, sp), got):
+            same_answer(w, as_response(g), q)
+        seq_p50, seq_p99 = percentile_ms(seq_s, 50), percentile_ms(seq_s, 99)
+        log(f"service ({card}): sequential /bench/search, {N_SEQ} typo and "
+            f"{N_SEQ} plain queries: p50 {seq_p50} ms, p99 {seq_p99} ms "
+            f"(typo p50 {percentile_ms(seq_s[:N_SEQ], 50)}, plain p50 "
+            f"{percentile_ms(seq_s[N_SEQ:], 50)}); {len(expect)} distinct "
+            f"uncached typos, launches {seq_launches}")
+
+        # Boolean rows, one per request.
+        got = []
+        for q in mixed:
+            status, payload = http_json(conn, "POST", "/bench/search?limit=10",
+                                        q.encode())
+            statuses.append(status)
+            got.append(payload)
+        for q, w, g in zip(mixed, idx.search_many(mixed, sp), got):
+            same_answer(w, as_response(g), q)
+        status, stats = http_json(conn, "GET", "/bench/stats")
+        statuses.append(status)
+        if any(stats[k] != want_stats[k] for k in (
+                "doc_count", "term_count", "token_count")):
+            raise AssertionError(f"/bench/stats: {stats} vs {want_stats}")
+        bad, _ = http_json(conn, "POST", "/~")
+        if bad != 400:
+            raise AssertionError(f"POST /~ answered {bad}")
+    finally:
+        conn.close()
+        httpd.shutdown()
+        httpd.server_close()
+        svc.close()
+    if any(s != 200 for s in statuses):
+        raise AssertionError(f"statuses: {sorted(set(statuses))}")
+    log(f"service ({card}): {len(statuses)} requests, every one 200; every "
+        "answer equals the library's; /bench/stats equals phase 3's "
+        "counts; POST /~ answered 400")
+    return {"qps": qps, "request_p50_ms": p50, "request_p99_ms": p99,
+            "qps_one_client": qps_one, "library_qps_same_chunks": lib_qps,
+            "routes": svc_routes, "typo_qps": N_FUZZY / typo_s,
+            "typo_launches": typo_launches, "seq_p50_ms": seq_p50,
+            "seq_p99_ms": seq_p99, "seq_launches": seq_launches,
+            "seq_typos": len(expect), "open_s": open_s,
+            "snapshot_s": snap_s, "device_gib": mem / 2**30,
+            "requests": len(statuses)}
+
+
+def run_phase(name: str, card: str, fn, *args):
+    """Run one phase and log its seconds beside the card."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"{name}: {time.perf_counter() - t0} s ({card})")
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def entry_point_phase(workdir: str, idx, sp, card: str,
+                      device: str = "cuda") -> dict:
+    """Phase 13: ``python -m nxsearch_tpu_torch.service`` and
+    ``python -m nxsearch_tpu_torch.benchmark`` as subprocesses over
+    phase 3's basedir, each answer held to the library's."""
+    import http.client
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import bench
+
+    words, probs = vocab()
+    q_svc = bench.make_fuzzy_queries(1, words, probs,
+                                     np.random.default_rng(50), "p")[0]
+    q_cli = workload()[0][1]
+    free0, _total = torch.cuda.mem_get_info()
+    port = free_port()
+    with tempfile.TemporaryFile("w+") as out:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "nxsearch_tpu_torch.service",
+             "--basedir", workdir, "--device", device, "--host",
+             "127.0.0.1", "--port", str(port)], cwd=ROOT, stdout=out,
+            stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"service exited {proc.returncode}")
+                if time.perf_counter() - t0 > SVC_OPEN_LIMIT_S:
+                    raise AssertionError("service not ready in "
+                                         f"{SVC_OPEN_LIMIT_S} s")
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}/bench/stats",
+                            timeout=60) as r:
+                        if r.status == 200:
+                            break
+                except OSError:
+                    time.sleep(0.5)
+            ready_s = time.perf_counter() - t0
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            t0 = time.perf_counter()
+            status, payload = http_json(conn, "POST", "/bench/search?limit=10",
+                                        q_svc.encode())
+            first_s = time.perf_counter() - t0
+            conn.close()
+            svc_gib = (free0 - torch.cuda.mem_get_info()[0]) / 2**30
+            if status != 200:
+                raise AssertionError(f"service search: {status} {payload}")
+            same_answer(idx.search(q_svc, sp), as_response(payload), q_svc)
+        except BaseException:
+            out.seek(0)
+            log(f"service output:\n{out.read()[-4000:]}")
+            raise
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    log(f"entry points ({card}): python -m nxsearch_tpu_torch.service "
+        f"ready in {ready_s} s (start, torch import, index open), first "
+        f"/bench/search (snapshot build, a typo) {first_s} s, "
+        f"{svc_gib} GiB of the card taken; its answer equals the library's")
+
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "nxsearch_tpu_torch.benchmark", "--basedir",
+         workdir, "-i", "bench", "-s", q_cli, "--limit", "10", "--device",
+         device], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if cli.returncode != 0:
+        raise AssertionError(f"benchmark CLI exited {cli.returncode}:\n"
+                             f"{cli.stdout[-2000:]}\n{cli.stderr[-4000:]}")
+    lines = cli.stdout.splitlines()
+    answer = [line for line in lines if line.startswith("{")]
+    timings = [line for line in lines if line.endswith(" ms")]
+    if len(answer) != 1:
+        raise AssertionError(f"benchmark CLI output:\n{cli.stdout}")
+    same_answer(idx.search(q_cli, sp), as_response(json.loads(answer[0])),
+                q_cli)
+    log(f"entry points ({card}): python -m nxsearch_tpu_torch.benchmark "
+        f"-s {q_cli!r}: exit 0 in {cli_s} s ({'; '.join(timings)}); its "
+        "JSON equals the library's answer")
+    return {"service_ready_s": ready_s, "service_first_search_s": first_s,
+            "service_gib": svc_gib, "cli_s": cli_s, "cli_timings": timings}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1478,6 +1965,17 @@ def main() -> int:
             seg = segsum_phase(idx, bd["queries"])
             boolean_oracle(oracle, mixed, bd)
             fb = fallback_phase(idx, sp, oracle, card)
+            # The served index as a deployment leaves it after ingest:
+            # with its fast-open snapshot cache on disk.
+            t0 = time.perf_counter()
+            idx.checkpoint()
+            log(f"checkpoint: {time.perf_counter() - t0} s")
+            par = run_phase("phase 11 (parallel ingest)", card,
+                            parallel_ingest_phase, idx, sp, ingest_s, card)
+            svc = run_phase("phase 12 (service)", card, service_phase,
+                            workdir, idx, sp, card)
+            ep = run_phase("phase 13 (entry points)", card,
+                           entry_point_phase, workdir, idx, sp, card)
         finally:
             nxs.close()
     if "jax" in sys.modules:
@@ -1490,7 +1988,8 @@ def main() -> int:
         "rev": rev, "single": one, "myers_times": kern["times"],
         "myers_step_instructions": step_ops, "ptxas": ptxas,
         "blockdense": {k: bd[k] for k in ("qps", "stats", "launches")},
-        "fallback": fb, "card": card,
+        "fallback": fb, "parallel_ingest": par, "service": svc,
+        "entry_points": ep, "card": card,
         "snapshot_s": snapshot_s, "ingest_s": ingest_s, "docs": N_DOCS}))
 
     # No single PyTorch call computes Levenshtein distances or the

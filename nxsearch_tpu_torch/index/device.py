@@ -253,7 +253,16 @@ class DeviceIndex:
         blockdense batch derives them again, so the second postings
         copy beside the pack is transient.  Queued work keeps its
         memory: the caching allocator reuses it only for work ordered
-        after it on the stream."""
+        after it on the stream.
+
+        Request threads call this under the index's shared read lock,
+        so one thread may drop the columns while another still uses
+        them.  It cannot lose them: dropping clears only this object's
+        reference; a thread that read ``postings_slot`` / ``postings_ltf``
+        holds its own reference to the tensor until its launches are
+        enqueued, and every thread enqueues on the device's one current
+        stream, so the memory is reused only by work ordered after
+        theirs.  A thread that finds the column gone derives it again."""
         if self.postings_pack is not None and self.n_postings > (1 << 26):
             self._slot_dev = None
             self._ltf_dev = None

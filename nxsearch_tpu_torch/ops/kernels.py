@@ -99,11 +99,15 @@ class CudaKernel:
                     self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
-        """Call the entry point on the current CUDA stream; raise if the
-        launch was refused."""
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = self.function()(*args, stream)
+    def launch(self, device: torch.device, *args) -> None:
+        """Call the entry point on ``device`` -- the device of the
+        tensors whose pointers ``args`` carry -- under its device guard
+        and on its current stream; raise if the launch was refused.
+        The caller's thread may have any current device (a service
+        request thread's is cuda:0)."""
+        fn = self.function()
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
             raise RuntimeError(
                 f"{self.symbol}: CUDA launch failed with error {rc}")
@@ -357,11 +361,10 @@ def myers_distances(vocab_bytes: torch.Tensor, vocab_len: torch.Tensor,
     if n_t and n_q:
         ptrs = (vocab_bytes.data_ptr(), vocab_len.data_ptr(),
                 q_bytes.data_ptr(), q_len.data_ptr(), out.data_ptr(), n_t)
-        with torch.cuda.device(dev):
-            if n_q == 1:
-                MYERS_ONE.launch(*ptrs)
-            else:
-                MYERS.launch(*ptrs, n_q)
+        if n_q == 1:
+            MYERS_ONE.launch(dev, *ptrs)
+        else:
+            MYERS.launch(dev, *ptrs, n_q)
     return out
 
 
@@ -383,10 +386,9 @@ def myers_rev_distances(vocab_bytes: torch.Tensor, vocab_len: torch.Tensor,
     n_t, n_q = vocab_bytes.shape[0], q_bytes.shape[0]
     out = torch.empty((n_q, n_t), dtype=torch.int32, device=dev)
     if n_t and n_q:
-        with torch.cuda.device(dev):
-            MYERS_REV.launch(vocab_bytes.data_ptr(), vocab_len.data_ptr(),
-                             q_bytes.data_ptr(), q_len.data_ptr(),
-                             out.data_ptr(), n_t, n_q)
+        MYERS_REV.launch(dev, vocab_bytes.data_ptr(), vocab_len.data_ptr(),
+                         q_bytes.data_ptr(), q_len.data_ptr(),
+                         out.data_ptr(), n_t, n_q)
     return out
 
 
@@ -493,10 +495,9 @@ def blockdense_scores(postings_slot: torch.Tensor, postings_ltf: torch.Tensor,
     scores = torch.empty((n_batch, n_slots), dtype=torch.float32, device=dev)
     bits = torch.empty((n_batch, n_slots), dtype=torch.int32, device=dev)
     if n_batch:
-        with torch.cuda.device(dev):
-            SEGSUM.launch(postings_slot.data_ptr(), postings_ltf.data_ptr(),
-                          doc_len.data_ptr(), alive_f.data_ptr(),
-                          bounds.data_ptr(), coef.data_ptr(),
-                          scores.data_ptr(), bits.data_ptr(), n_batch,
-                          n_terms, n_blocks, int(algo), int(use_mask))
+        SEGSUM.launch(dev, postings_slot.data_ptr(), postings_ltf.data_ptr(),
+                      doc_len.data_ptr(), alive_f.data_ptr(),
+                      bounds.data_ptr(), coef.data_ptr(),
+                      scores.data_ptr(), bits.data_ptr(), n_batch,
+                      n_terms, n_blocks, int(algo), int(use_mask))
     return scores, bits

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import functools
 import os
+import threading
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -69,10 +70,14 @@ _ALGO_BY_NAME = {"BM25": ALGO_BM25, "TF-IDF": ALGO_TFIDF}
 # masked dense-row hybrid; coalesced / coalesced_pf count rows merged
 # into widened groups.
 EXEC_STATS: dict[str, int] = {}
+# Request threads of the service search concurrently: the counters'
+# read-modify-write takes this lock, so no count is lost.
+_STATS_LOCK = threading.Lock()
 
 
 def _count(key: str, n: int = 1) -> None:
-    EXEC_STATS[key] = EXEC_STATS.get(key, 0) + n
+    with _STATS_LOCK:
+        EXEC_STATS[key] = EXEC_STATS.get(key, 0) + n
 
 
 def _count_sliced(n: int, t_head: int, use_mask: bool,
@@ -1542,11 +1547,10 @@ def execute_query(dev, query: Query, sp: SearchParams,
         _count("blockdense")
         return _to_response(dev, scores[0], slots[0], sp.limit,
                             delta=_delta_results(dev, plan, sp))
-    # The candidate or dense executor (uncounted here, as in the
-    # reference's single-query path).
     packed = _dispatch_plain(dev, [plan], sp, k, 1)
     dev.drop_legacy_cols()
     scores, slots = unpack_sliced(packed.cpu().numpy())
+    _count("dense" if plan.use_dense else "candidate")
     return _to_response(dev, scores[0], slots[0], sp.limit,
                         delta=_delta_results(dev, plan, sp))
 

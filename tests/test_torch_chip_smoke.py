@@ -166,3 +166,57 @@ def test_fallback_phase_rehearsal(tmp_path, monkeypatch):
     for name in ("_prefix_mode", "_use_sliced", "_use_blockdense"):
         assert getattr(psearch, name).__name__ == name     # restored
     assert psearch._PREFIX_MAX_WIDE == 0      # restored
+
+
+def test_ingest_service_entry_phases_rehearsal(tmp_path, monkeypatch):
+    """Phases 11-13 on a small CPU index: parallel ingest equal to the
+    serial build, the in-process service (batched, typo, sequential and
+    boolean traffic, each answer equal to the library's, the route
+    counters equal to the library's, one single-query sweep per
+    distinct uncached typo), and the service and the CLI as
+    subprocesses.  The kernels' plain twins stand in for the kernels
+    and bump their launch counts."""
+    import bench
+    from nxsearch_tpu_torch import Nxs, Params
+    from nxsearch_tpu_torch.index.device import DeviceIndex
+    from nxsearch_tpu_torch.ops import kernels
+
+    monkeypatch.setattr(DeviceIndex, "PREFIX_CAP", 64)   # sliced rows too
+    monkeypatch.setattr(DeviceIndex, "WIDE_MIN_DF", 64)
+    for name, value in {"N_DOCS": 3000, "VOCAB": 6000, "MEAN_LEN": 20,
+                        "N_QUERIES": 512, "BATCH": 128, "N_FUZZY": 64,
+                        "N_PAR_CHECK": 16, "SVC_REQ": 64, "N_SEQ": 16,
+                        "INGEST_WORKERS": 2}.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    for twin, kernel in (("myers_distances_ref", kernels.MYERS),
+                         ("myers_distances_one_ref", kernels.MYERS_ONE),
+                         ("myers_rev_distances_ref", kernels.MYERS_REV)):
+        def counted(*a, _fn=getattr(kernels, twin), _k=kernel, **kw):
+            _k.launches += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(kernels, twin, counted)
+    for name, fn in {"synchronize": lambda *a, **kw: None,
+                     "empty_cache": lambda: None,
+                     "memory_allocated": lambda *a: 0,
+                     "mem_get_info": lambda *a: (0, 0)}.items():
+        monkeypatch.setattr(torch.cuda, name, fn)
+    monkeypatch.setenv("NXS_MALLOC_TUNE", "0")
+    workdir = str(tmp_path / "work")
+    nxs = Nxs(workdir, device="cpu")
+    idx = nxs.index_create("bench")
+    idx.add_many(bench.zipf_range(0, 3000, 6000, 20))
+    sp = Params().set_uint("limit", 10)
+    card = "a card, 700 W"
+    try:
+        idx.checkpoint()
+        par = chip_smoke.parallel_ingest_phase(idx, sp, 1.0, card, "cpu")
+        svc = chip_smoke.service_phase(workdir, idx, sp, card, "cpu")
+        ep = chip_smoke.entry_point_phase(workdir, idx, sp, card, "cpu")
+    finally:
+        nxs.close()
+    assert par["workers"] == 2 and par["seconds"] > 0
+    assert svc["routes"]["prefix"] > 0 and svc["routes"]["sliced"] > 0
+    assert svc["typo_launches"]["fwd"] > 0
+    assert svc["seq_launches"]["one"] == svc["seq_typos"] > 0
+    assert svc["requests"] > 0
+    assert ep["cli_timings"] and ep["service_ready_s"] > 0

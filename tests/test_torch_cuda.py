@@ -537,3 +537,42 @@ def test_masked_search_on_card_matches_cpu(tmp_path, monkeypatch, hybrid):
         _assert_same(w, g, q)
     gpu.close()
     cpu.close()
+
+
+def test_kernels_launch_from_a_fresh_thread():
+    """Each kernel launched from a new thread (as a service request
+    thread launches it) equals its twin, and counts one launch."""
+    _need_card()
+    import threading
+
+    vb, vl, qb, ql = _myers_inputs(12, 5000, 40)
+    seg = _segsum_inputs(13, 4, 8, 8192)
+    calls = [
+        (kernels.MYERS, lambda: (kernels.myers_distances(vb, vl, qb, ql),),
+         lambda: (kernels.myers_distances_ref(vb, vl, qb, ql),)),
+        (kernels.MYERS_ONE,
+         lambda: (kernels.myers_distances(vb, vl, qb[:1], ql[:1])[0],),
+         lambda: (kernels.myers_distances_one_ref(vb, vl, qb[0], ql[0]),)),
+        (kernels.MYERS_REV,
+         lambda: (kernels.myers_rev_distances(vb, vl, qb, ql),),
+         lambda: (kernels.myers_rev_distances_ref(vb, vl, qb, ql),)),
+        (kernels.SEGSUM,
+         lambda: kernels.blockdense_scores(*seg, algo=0, use_mask=True),
+         lambda: kernels.blockdense_scores_ref(*seg, algo=0,
+                                               use_mask=True)),
+    ]
+    for kernel, launch, twin in calls:
+        out = {}
+        before = kernel.launches
+
+        def run():
+            out["got"] = launch()
+            torch.cuda.synchronize(out["got"][0].device)
+
+        t = threading.Thread(target=run)
+        t.start()
+        t.join(timeout=120)
+        assert not t.is_alive(), kernel.symbol
+        assert kernel.launches == before + 1, kernel.symbol
+        for got, want in zip(out["got"], twin()):
+            assert torch.equal(got, want), kernel.symbol

@@ -471,3 +471,36 @@ def test_search_pipelined_matches_reference(pair, router):
         for q, r, g in zip(b_q, b_r, b_g):
             assert_same(r, g, q)
     _check_counters(router)
+
+
+ROUTES = ("prefix", "sliced", "blockdense", "candidate", "dense")
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_single_query_counts_its_route(pair, monkeypatch, route):
+    """Every route of ``Index.search`` bumps exactly one route counter:
+    a pure-OR BM25 query the prefix one, the same query in TF-IDF the
+    sliced one, a masked query over a dense-row term with the masked
+    hybrid off the blockdense one (the candidate one with
+    ``_use_blockdense`` patched to False), and a > 32-term masked query
+    the dense one."""
+    _jidx, pidx = pair
+    words, _probs = _vocab()
+    heavy = str(words[0])
+    query, algo = {
+        "prefix": ("w00100 w00200", "BM25"),
+        "sliced": ("w00100 w00200", "TF-IDF"),
+        "blockdense": (f"{heavy} AND w00100", "BM25"),
+        "candidate": (f"{heavy} AND w00100", "BM25"),
+        "dense": (wide_masked(np.random.default_rng(5), 1)[0], "BM25"),
+    }[route]
+    monkeypatch.setattr(psearch, "_MASKED_HYBRID", False)
+    if route == "candidate":
+        monkeypatch.setattr(psearch, "_use_blockdense",
+                            lambda *a, **kw: False)
+    psearch.EXEC_STATS.clear()
+    got = pidx.search(query, nxsearch_tpu_torch.Params().set_uint(
+        "limit", 10).set_str("algo", algo))
+    assert len(got.results) > 0
+    assert {key: psearch.EXEC_STATS.get(key, 0) for key in ROUTES} == \
+        {key: int(key == route) for key in ROUTES}

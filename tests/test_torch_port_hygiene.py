@@ -25,7 +25,8 @@ VERBATIM = (
     ["errors.py", "params.py", "resp.py",
      "index/__init__.py", "index/storage.py", "index/hostindex.py",
      "utils/__init__.py", "utils/log.py", "utils/rwlock.py",
-     "utils/validate.py", "utils/malloc.py"]
+     "utils/validate.py", "utils/malloc.py",
+     "service/storage.py", "service/openapi.py"]
     + [f"text/{f}" for f in sorted(os.listdir(os.path.join(REF, "text")))
        if f.endswith(".py")]
     + [f"query/{f}" for f in sorted(os.listdir(os.path.join(REF, "query")))
@@ -82,6 +83,74 @@ nxs.close()
     lines = out.stdout.split("\n")
     assert lines[0] == "[3, 1]"
     assert lines[1] == "[3, 1]"
+
+
+def test_entry_modules_import_without_jax():
+    """The service, the CLI and parallel ingest import in a process in
+    which jax cannot be imported, and import no jax."""
+    code = f"""
+import sys
+sys.modules["jax"] = None
+sys.path.insert(0, {ROOT!r})
+import nxsearch_tpu_torch.benchmark
+import nxsearch_tpu_torch.ingest
+import nxsearch_tpu_torch.service
+from nxsearch_tpu_torch import parallel_ingest
+from nxsearch_tpu_torch.service import SearchService, main
+assert not any(m == "jax" or m.startswith(("jax.", "nxsearch_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout == "ok\n"
+
+
+class _OnCard:
+    """A CPU tensor that reports a CUDA device: what a wrapper reads of
+    its inputs (device, dtype, shape, contiguity, pointer)."""
+
+    def __init__(self, t, device):
+        self.t, self.device = t, device
+
+    def __getattr__(self, name):
+        return getattr(self.t, name)
+
+
+def test_wrappers_launch_on_the_tensors_device(monkeypatch):
+    """Each wrapper hands its kernel the device of the tensors it was
+    given (not the thread's current device), once per call."""
+    card = torch.device("cuda", 1)
+    seen = []
+    monkeypatch.setattr(kernels.CudaKernel, "launch",
+                        lambda self, device, *args: seen.append(
+                            (self.symbol, device)))
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, device=None, **kw:
+                        real_empty(*a, **kw))
+
+    def on_card(*ts):
+        return [_OnCard(t.contiguous(), card) for t in ts]
+
+    vb = torch.zeros((8, kernels.MAX_BYTES), dtype=torch.uint8)
+    vl = torch.ones(8, dtype=torch.int32)
+    for n_q in (1, 3):
+        qb = torch.zeros((n_q, kernels.MAX_BYTES), dtype=torch.uint8)
+        ql = torch.ones(n_q, dtype=torch.int32)
+        kernels.myers_distances(*on_card(vb, vl, qb, ql))
+        kernels.myers_rev_distances(*on_card(vb, vl, qb, ql))
+    n_slots = kernels.BLOCK_SLOTS
+    kernels.blockdense_scores(*on_card(
+        torch.zeros(16, dtype=torch.int32), torch.zeros(16),
+        torch.ones(n_slots), torch.ones(n_slots),
+        torch.zeros((2, 3, 2), dtype=torch.int32), torch.zeros((2, 3, 4))),
+        algo=0, use_mask=True)
+    assert seen == [("nxs_myers_distances_one", card),
+                    ("nxs_myers_rev_distances", card),
+                    ("nxs_myers_distances", card),
+                    ("nxs_myers_rev_distances", card),
+                    ("nxs_segsum_blockdense", card)]
 
 
 def test_wrapper_raises_for_non_cpu_tensors():
