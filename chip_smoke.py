@@ -124,7 +124,25 @@ kernel of those paths against its plain PyTorch twin.  Phases (any failure exits
    /bench/search equal to the library's answer, then terminated; and
    python -m nxsearch_tpu_torch.benchmark -s <query> --limit 10
    --device cuda, exit 0 and its JSON equal to the library's answer;
-   their open seconds and the card memory the service took.
+   their open seconds and the card memory the service took;
+14. mesh phase: a second Nxs over phase 3's basedir with
+   mesh=make_mesh([cuda:0] * 4) (four doc shards of the one card;
+   with more cards make_mesh() would take them all): the shards' build
+   seconds, bytes and dense rows per shard; 8192 make_queries through
+   search_pipelined (every row on the R = 0 prefix body, or the sliced
+   dense-row hybrid body where a row holds a dense-row term), 8192
+   make_mixed_queries (sliced and fallback rows), the 512 blockdense
+   queries of phase 7 through search_many (every row on the kernel
+   body; segsum launches once per shard and 8-term group, one launch's
+   inputs replayed through blockdense_scores_ref, equal), 64 > 32-term
+   masked queries (the dense body), 64 Index.search calls, half with
+   typos (single-query Myers launches), and a removal (the alive
+   bitmaps flip, the shards stay); every answer equal to the
+   single-device port's on the same index (scores within 1e-4, ids up
+   to an adjacent swap, or, where three or more scores lie within 1e-4,
+   up to that group; the count logged); QPS beside phases 3 and 6's;
+   each drive with the launch counts from zero; then
+   dryrun_multichip(2, devices=[cuda:0] * 2).
 
 Each phase logs its seconds and numbers beside the card's name and
 power limit, and the device memory it allocates.
@@ -178,6 +196,9 @@ SVC_CLIENTS = 8         # keep-alive HTTP clients (tools/bench_service.py)
 SVC_REQ = 256           # queries per /search_batch request
 N_SEQ = 64              # sequential typo, plain and boolean requests
 SVC_OPEN_LIMIT_S = 300  # a subprocess service must answer within this
+MESH_SHARDS = 4         # phase 14: shards of the one card
+N_MESH_DENSE = 64       # > 32-term masked queries on the mesh
+N_MESH_SINGLE = 64      # Index.search calls on the mesh
 TOL = 1e-4               # score tolerance of the reference's own tests
 
 # The card's peak rates for the kernels' bounds: HBM3 bytes per second
@@ -1816,6 +1837,220 @@ def run_phase(name: str, card: str, fn, *args):
     return out
 
 
+def tie_same(ref, got, q) -> bool:
+    """same_answer's rule, or, where that fails, ids equal up to a group
+    of near-equal scores: each id stands at a rank whose ``ref`` score
+    is within TOL of its own, or ties ``ref``'s last score (the limit's
+    cut).  Returns False when only the second rule held; raises when
+    neither did."""
+    try:
+        same_answer(ref, got, q)
+        return True
+    except AssertionError:
+        pass
+    ids_r = [d for d, _ in ref.results]
+    sc_r = [s for _, s in ref.results]
+    ids_g = [d for d, _ in got.results]
+    if len(ids_g) != len(ids_r) or any(
+            abs(a - b) > TOL for (_, a), b in zip(got.results, sc_r)):
+        raise AssertionError(f"{q!r}: {got.results} vs {ref.results}")
+    rank = {d: i for i, d in enumerate(ids_r)}
+    for i, d in enumerate(ids_g):
+        j = rank.get(d)
+        if abs(sc_r[i] - (sc_r[-1] if j is None else sc_r[j])) > TOL:
+            raise AssertionError(f"{q!r} rank {i}: {ids_g} vs {ids_r}")
+    return False
+
+
+def mesh_phase(workdir: str, idx, sp, card: str, single: dict,
+               device: str = "cuda") -> dict:
+    """Phase 14: the doc-sharded mesh over phase 3's basedir, MESH_SHARDS
+    shards of one card, every answer held to the single-device port's
+    (``idx``) on the same index; ``single`` holds phases 3 and 6's
+    QPS."""
+    import numpy as np
+    import torch
+
+    import bench
+    from nxsearch_tpu_torch import Nxs
+    from nxsearch_tpu_torch import search as search_mod
+    from nxsearch_tpu_torch.ops import executor, kernels
+    from nxsearch_tpu_torch.parallel import dryrun_multichip, make_mesh
+
+    card0 = torch.device("cuda", 0) if device == "cuda" \
+        else torch.device(device)
+    words, probs = vocab()
+    out = {"tie_groups": 0}
+    launches = {k.symbol: 0 for k in all_kernels()}
+
+    def drive(name, fn):
+        """One mesh drive: the counts from zero just before it and read
+        just after; (result, seconds, route counters)."""
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        for key, n in launch_counts().items():
+            launches[key] += n
+        stats = dict(sorted(search_mod.EXEC_STATS.items()))
+        log(f"mesh {name} ({card}): {seconds} s; routes {stats}; kernel "
+            f"launches {launch_counts()}")
+        return result, seconds, stats
+
+    def check(queries, want, got):
+        for q, w, g in zip(queries, want, got):
+            out["tie_groups"] += not tie_same(w, g, q)
+        check_finite(got)
+
+    nxs = Nxs(workdir, mesh=make_mesh([card0] * MESH_SHARDS))
+    try:
+        midx = nxs.index_open("bench")
+        t0 = time.perf_counter()
+        midx.search("w00001", sp)          # builds the shards
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        dev = midx.dev
+        shard_bytes = [sum(int(t[d].numel()) * t[d].element_size()
+                           for t in (dev.postings_pack, dev.postings_slot,
+                                     dev.postings_ltf, dev.doc_len,
+                                     dev.alive_mask, dev.dense_rows)
+                           if t is not None) for d in range(dev.n_dev)]
+        dense_rows = [int(t.shape[0]) for t in dev.dense_rows or ()]
+        if not all(t.device.type == card0.type
+                   for t in dev.postings_pack + dev.alive_mask):
+            raise AssertionError("mesh shards are not on the card")
+        log(f"mesh snapshot ({card}): {dev.n_dev} shards of "
+            f"{dev.slots_per_shard} slots, build {build_s} s, bytes per "
+            f"shard {shard_bytes}, dense rows per shard {dense_rows}")
+        out.update(build_s=build_s, shard_bytes=shard_bytes,
+                   dense_rows=dense_rows, slots_per_shard=dev.slots_per_shard)
+
+        # Pure-OR: the R = 0 prefix body (rows with a dense-row term take
+        # the sliced dense-row hybrid body).
+        queries, batches, _fuzzy = workload()
+        midx.search_pipelined(batches[:1], sp)          # warm-up
+        got, sec, stats = drive("pure-OR search_pipelined", lambda:
+                                midx.search_pipelined(batches, sp))
+        if (stats.get("sharded_prefix", 0) + stats.get("sharded_sliced", 0)
+                != N_QUERIES or stats.get("sharded_prefix", 0) <= 0
+                or stats.get("prefix", 0) != stats["sharded_prefix"]):
+            raise AssertionError(f"mesh pure-OR: every row on the mesh "
+                                 f"prefix or sliced body expected: {stats}")
+        want = idx.search_many(queries, sp)
+        check(queries, want, [r for b in got for r in b])
+        out["qps"] = N_QUERIES / sec
+        out["stats"] = stats
+
+        # Mixed trace: sliced rows and fallback rows.
+        mixed = bench.make_mixed_queries(N_MIXED, words, probs,
+                                         np.random.default_rng(43))
+        mbatches = [mixed[i: i + BATCH] for i in range(0, N_MIXED, BATCH)]
+        midx.search_pipelined(mbatches[:1], sp)         # warm-up
+        got, sec, stats = drive("mixed search_pipelined", lambda:
+                                midx.search_pipelined(mbatches, sp))
+        if (stats.get("sharded_sliced", 0) <= 0
+                or stats.get("sharded_fallback", 0) <= 0):
+            raise AssertionError(f"mesh mixed: sliced and fallback rows "
+                                 f"expected: {stats}")
+        want = idx.search_many(mixed, sp)
+        check(mixed, want, [r for b in got for r in b])
+        out["mixed_qps"] = N_MIXED / sec
+        out["mixed_stats"] = stats
+
+        # Blockdense: masked rows with a dense-row term run the kernel
+        # body, the segsum kernel once per shard and 8-term group; the
+        # first launch's inputs replayed through its plain twin.
+        bdq = bd_queries(idx)
+        midx.search_many(bdq[:64], sp)                  # warm-up
+        captured = []
+        real = executor.blockdense_scores
+
+        def capture(*a, **kw):
+            res = real(*a, **kw)
+            if not captured:
+                captured.append((a, kw, tuple(t.clone() for t in res)))
+            return res
+
+        executor.blockdense_scores = capture
+        try:
+            got, sec, stats = drive("blockdense search_many", lambda:
+                                    midx.search_many(bdq, sp))
+        finally:
+            executor.blockdense_scores = real
+        seg = kernels.SEGSUM.launches
+        if stats.get("sharded_fallback", 0) != N_BD or seg < MESH_SHARDS:
+            raise AssertionError(f"mesh blockdense: {N_BD} kernel-body rows "
+                                 f"and a segsum launch per shard expected: "
+                                 f"{stats}, {seg}")
+        a, kw, (k_scores, k_bits) = captured[0]
+        r_scores, r_bits = kernels.blockdense_scores_ref(*a, **kw)
+        torch.cuda.synchronize()
+        bd_err = float((k_scores - r_scores).abs().max())
+        if not (torch.equal(k_scores, r_scores)
+                and torch.equal(k_bits, r_bits)):
+            raise AssertionError(f"mesh segsum launch disagrees with its "
+                                 f"twin: max |diff| {bd_err}")
+        want = idx.search_many(bdq, sp)
+        check(bdq, want, got)
+        out.update(bd_qps=N_BD / sec, bd_segsum_launches=seg,
+                   bd_replay_shape=list(a[4].shape), bd_max_abs_err=bd_err)
+        log(f"mesh blockdense: {seg} segsum launches; a launch of bounds "
+            f"{list(a[4].shape)} replayed through blockdense_scores_ref: "
+            "equal")
+
+        # > 32-term masked queries: the dense body.
+        dq = dense_queries(idx)[:N_MESH_DENSE]
+        got, sec, stats = drive("dense search_many", lambda:
+                                midx.search_many(dq, sp))
+        if stats.get("sharded_fallback", 0) != len(dq):
+            raise AssertionError(f"mesh dense: {len(dq)} rows expected: "
+                                 f"{stats}")
+        check(dq, idx.search_many(dq, sp), got)
+        out["dense_qps"] = len(dq) / sec
+
+        # One query at a time, typos included (the single-query Myers
+        # kernel on mesh[0]).
+        sq = bench.make_fuzzy_queries(N_MESH_SINGLE // 2, words, probs,
+                                      np.random.default_rng(51), "t")
+        sq += queries[: N_MESH_SINGLE - len(sq)]
+        got, sec, stats = drive("Index.search", lambda:
+                                [midx.search(q, sp) for q in sq])
+        if kernels.MYERS_ONE.launches <= 0:
+            raise AssertionError("mesh Index.search: no single-query "
+                                 "Myers launch")
+        check(sq, [idx.search(q, sp) for q in sq], got)
+        out["ms_per_search"] = sec * 1e3 / len(sq)
+
+        # A removal: the alive bitmaps flip, the shards stay.
+        victim = got[-1].results[0][0]
+        pack, gen = dev.postings_pack, dev.generation
+        midx.remove(victim)
+        q = sq[-1]
+        after = midx.search(q, sp)
+        if (victim in dict(after.results) or dev.postings_pack is not pack
+                or dev.generation == gen or dev.alive_all):
+            raise AssertionError("mesh removal: expected a bitmap flip, "
+                                 "no rebuild, the document gone")
+        tie_same(idx.search(q, sp), after, q)
+        log(f"mesh removal ({card}): doc {victim} gone, the shards kept, "
+            "the answer equal to the single device's")
+    finally:
+        nxs.close()
+    dryrun_multichip(2, devices=[card0] * 2)
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    log(f"mesh phase ({card}): pure-OR {out['qps']} QPS (single device, "
+        f"phase 3: {single['qps']}), mixed {out['mixed_qps']} QPS (phase "
+        f"6: {single['mixed_qps']}), blockdense {out['bd_qps']} QPS, dense "
+        f"{out['dense_qps']} QPS, Index.search {out['ms_per_search']} ms; "
+        f"every answer equal to the single device's ({out['tie_groups']} "
+        "up to a group of near-equal scores); dryrun_multichip(2) passed; "
+        f"launches {launches}")
+    return out
+
+
 def free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -1976,6 +2211,9 @@ def main() -> int:
                             workdir, idx, sp, card)
             ep = run_phase("phase 13 (entry points)", card,
                            entry_point_phase, workdir, idx, sp, card)
+            mesh = run_phase("phase 14 (mesh)", card, mesh_phase, workdir,
+                             idx, sp, card, {"qps": sl["qps"],
+                                             "mixed_qps": mixed["qps"]})
         finally:
             nxs.close()
     if "jax" in sys.modules:
@@ -1989,30 +2227,32 @@ def main() -> int:
         "myers_step_instructions": step_ops, "ptxas": ptxas,
         "blockdense": {k: bd[k] for k in ("qps", "stats", "launches")},
         "fallback": fb, "parallel_ingest": par, "service": svc,
-        "entry_points": ep, "card": card,
+        "entry_points": ep, "mesh": mesh, "card": card,
         "snapshot_s": snapshot_s, "ingest_s": ingest_s, "docs": N_DOCS}))
 
     # No single PyTorch call computes Levenshtein distances or the
     # blockdense scores with their presence bits: library_ms is null.
     rows = [
-        ("myers_distances", "myers.cu", "fuzzy.py:52",
-         sl["launches"]["myers_distances"], kern["fwd"]),
-        ("myers_rev_distances", "myers_rev.cu", "fuzzy.py:162",
-         rev["launches"]["rev"], kern["rev"]),
-        ("blockdense_scores", "segsum.cu", "segsum.py:162",
-         bd["launches"], seg),
-        ("myers_distances_one", "myers.cu", "fuzzy.py:40",
-         one["launches"], kern["one"])]
-    # Beside the keys every kernel has: the single-query kernel's launch
-    # floor and cold-L2 time, the transposed kernel's time at M = 1.
+        ("myers_distances", "myers.cu", "nxs_myers_distances",
+         "fuzzy.py:52", sl["launches"]["myers_distances"], kern["fwd"]),
+        ("myers_rev_distances", "myers_rev.cu", "nxs_myers_rev_distances",
+         "fuzzy.py:162", rev["launches"]["rev"], kern["rev"]),
+        ("blockdense_scores", "segsum.cu", "nxs_segsum_blockdense",
+         "segsum.py:162", bd["launches"], seg),
+        ("myers_distances_one", "myers.cu", "nxs_myers_distances_one",
+         "fuzzy.py:40", one["launches"], kern["one"])]
+    # Beside the keys every kernel has: its launches in phase 14's mesh
+    # drives, the single-query kernel's launch floor and cold-L2 time,
+    # the transposed kernel's time at M = 1.
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"nxsearch_tpu_torch/csrc/{src}",
         "replaces": f"nxsearch_tpu/ops/pallas/{tpu}", "launches": n,
         **{k: m[k] for k in keys}, "library_ms": None,
+        "mesh_launches": mesh["launches"][sym],
         **{k: v for k, v in m.items() if k not in keys}}
-        for name, src, tpu, n, m in rows]}))
+        for name, src, sym, tpu, n, m in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -206,8 +206,10 @@ class DeviceIndex:
         # depend only on the base snapshot and the term, so the binary
         # search runs only on misses.  Row 0 stays all-zero (padding,
         # dense-handled and delta-born terms).  The LRU mutates under
-        # concurrent readers, hence the lock.
-        self._bounds_lock = threading.Lock()
+        # concurrent readers, hence the lock; a reader holds it (it is
+        # re-entrant) from ``bounds_crows`` until the kernel that reads
+        # the rows is enqueued, so no other thread evicts them first.
+        self._bounds_lock = threading.RLock()
         self._bounds_cache = None       # device int32[C, G+1]
         self._bounds_map = None         # OrderedDict term_id -> row
         self._bounds_next = 1
@@ -700,7 +702,11 @@ class DeviceIndex:
         """Cache rows of the given base terms' block bounds; missing
         rows are computed in one csr_block_bounds call and written into
         the cache.  Terms without base postings map to row 0.
-        Thread-safe."""
+        Thread-safe; the rows stay valid only while the caller holds
+        ``_bounds_lock`` (re-entrant) until it has enqueued the work
+        that reads them: every thread enqueues on the device's one
+        current stream, so a later eviction's write runs after that
+        read."""
         with self._bounds_lock:
             return self._bounds_crows_locked(term_ids)
 

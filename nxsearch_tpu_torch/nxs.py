@@ -6,7 +6,8 @@ is the nxs_t instance (basedir resolution, filter registry,
 open-index map); ``Index`` is nxs_index_t (add/remove/search over the
 journals + device snapshot).  The journals, the filter pipeline and
 the locking are the reference's host machinery; the snapshot and the
-executors run on one explicit ``torch.device``.
+executors run on one explicit ``torch.device``, or doc-sharded over a
+mesh of them (``mesh=``, parallel.make_mesh).
 """
 
 from __future__ import annotations
@@ -46,11 +47,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index or 0) == (b.index or 0)
+
+
 class Index:
-    """One open index (nxs_index_t equivalent)."""
+    """One open index (nxs_index_t equivalent).  With a ``mesh`` its
+    snapshot is doc-sharded over the mesh's devices and ``device`` is
+    the mesh's first (the merge device, where fuzzy resolution and the
+    merged results live)."""
 
     def __init__(self, nxs: "Nxs", name: str, params: Params,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         self.nxs = nxs
         self.name = name
         self.params = params
@@ -65,7 +73,11 @@ class Index:
         except Exception:
             self.pipeline.close()
             raise
-        self.dev = DeviceIndex(self.host, device)
+        if mesh is not None:
+            from .parallel.sharded import ShardedDeviceIndex
+            self.dev = ShardedDeviceIndex(self.host, mesh)
+        else:
+            self.dev = DeviceIndex(self.host, device)
         self._fuzzy = None  # lazily-built fuzzy matcher
         # Reader-writer semantics across threads sharing this handle:
         # journal-tail consumption, snapshot refresh, and mutation are
@@ -314,15 +326,29 @@ class Nxs:
     ``basedir`` defaults to the NXS_BASEDIR environment variable
     (nxs.c:95-105); a ``data/`` subdirectory holds the indexes.
     ``device`` is the torch device every index of this instance lives
-    on (default ``cuda``; see resolve_device).
+    on (default ``cuda``; see resolve_device).  ``mesh``, a list of
+    devices (parallel.make_mesh), shards every index over them instead;
+    ``device`` is then the mesh's first, and a ``device`` that names
+    another raises.
     """
 
-    def __init__(self, basedir: Optional[str] = None, device=None):
+    def __init__(self, basedir: Optional[str] = None, device=None,
+                 mesh=None):
         basedir = basedir or os.environ.get("NXS_BASEDIR")
         if not basedir:
             raise NxsError(ErrorCode.INVALID,
                            "base directory not specified")
-        self.device = resolve_device(device)
+        if mesh is not None:
+            from .parallel.sharded import make_mesh
+            mesh = make_mesh(mesh)
+            if device is not None and not _same_device(
+                    resolve_device(device), mesh[0]):
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"first device {mesh[0]}")
+            self.device = mesh[0]
+        else:
+            self.device = resolve_device(device)
+        self.mesh = mesh
         self.basedir = basedir
         os.makedirs(os.path.join(basedir, "data"), exist_ok=True)
         self.filters = FilterRegistry(basedir)
@@ -361,7 +387,7 @@ class Nxs:
         if not os.path.isfile(params_path):
             raise NxsError(ErrorCode.MISSING, f"index `{name}' does not exist")
         params = Params.fromfile(params_path)
-        idx = Index(self, name, params, self.device)
+        idx = Index(self, name, params, self.device, mesh=self.mesh)
         self._indexes[name] = idx
         return idx
 

@@ -16,7 +16,12 @@ slot), and the candidate and dense executors (plans keyed by
 route reads slots from the f32 pack, exact only below 2**24 slots, so
 a snapshot of 2**24 slots or more raises NxsError(LIMIT) naming the
 limit (the reference routes it to the candidate and dense executors,
-whose slot column is rounded there).
+whose slot column is rounded there).  On a doc-sharded index
+(parallel.ShardedDeviceIndex, ``hasattr(dev, "mesh")``) the same
+planner plans per shard and ``_dispatch_mesh`` runs each group's shard
+body ("spf": R = 0 impact-prefix, "ssl": sliced, ``batch_key``:
+blockdense / dense / candidate); the merged int32 global slots ride
+the batch's f32 fetch bit for bit (``unpack_mesh``).
 
 Device work is asynchronous on CUDA: a batch's groups are enqueued
 back to back, their packed results are concatenated on the device and
@@ -68,7 +73,8 @@ _ALGO_BY_NAME = {"BM25": ALGO_BM25, "TF-IDF": ALGO_TFIDF}
 # prefix_spec_used those a speculative twin answered, sliced_masked /
 # sliced_masked_rows the masked sliced rows and those of them on the
 # masked dense-row hybrid; coalesced / coalesced_pf count rows merged
-# into widened groups.
+# into widened groups; sharded_prefix / sharded_sliced /
+# sharded_fallback count a mesh's rows by shard body.
 EXEC_STATS: dict[str, int] = {}
 # Request threads of the service search concurrently: the counters'
 # read-modify-write takes this lock, so no count is lost.
@@ -1322,6 +1328,33 @@ def _use_blockdense(plan: _Plan, sharded: bool, n_slots: int) -> bool:
             and (not plan.use_mask or plan.q_start.shape[-1] <= 32))
 
 
+def _sharded_sliced(plan: _Plan, dev) -> bool:
+    """Run the sliced executor per shard (parallel.sharded): the
+    exclusions of _use_sliced with per-shard slot counts; masked plans
+    with dense-row terms take the fallback body."""
+    from .index.device import DeviceIndex
+    cols_cap = _WINDOW_MAX_COLS if plan.n_run else 64
+    return (getattr(dev, "postings_pack", None) is not None
+            and dev.slots_per_shard < (1 << 24)
+            and plan.sl_T <= DeviceIndex.SLICE_MAX_T
+            and plan.sl_start.shape[-1] <= cols_cap
+            and (not plan.use_mask or plan.q_start.shape[-1] <= 32)
+            # Dense-handled terms: the hybrid is pure-OR only (masked
+            # queries cannot evaluate NOT/AND on partial presence
+            # bits) -- same rule as _use_sliced.
+            and not (plan.use_mask and plan.use_rows))
+
+
+def _sharded_kernel(plan: _Plan, dev) -> bool:
+    """The mesh's other plans run the blockdense executor (the segsum
+    kernel) per shard, on every device, as _use_blockdense decides for
+    one device: boolean queries need presence bits to fit u32, and the
+    shard's packed slots are exact below 2**24 (the reference also
+    requires an accelerator)."""
+    return (dev.slots_per_shard < (1 << 24)
+            and (not plan.use_mask or plan.q_start.shape[-1] <= 32))
+
+
 def _kernel_crows(dev, plan: _Plan,
                   crow_map: Optional[dict] = None) -> np.ndarray:
     """Bounds-cache rows for the plan's kernel terms (dense-handled
@@ -1454,7 +1487,15 @@ def _dispatch_blockdense(dev, plans: list, sp: SearchParams, k: int,
                          n_pad: int):
     """Dispatch one blockdense group (plans of one ("bd", ...)
     signature, rows padded to ``n_pad``); returns the packed device
-    result f32[n_pad, 2, k']."""
+    result f32[n_pad, 2, k'].  The bounds-cache lock is held from
+    ``bounds_crows`` until the kernel that reads the rows is enqueued
+    (DeviceIndex.bounds_crows)."""
+    with dev._bounds_lock:
+        return _dispatch_blockdense_locked(dev, plans, sp, k, n_pad)
+
+
+def _dispatch_blockdense_locked(dev, plans: list, sp: SearchParams, k: int,
+                                n_pad: int):
     from .ops.executor import blockdense_core
     sample = plans[0]
     q_pad = sample.q_start.shape[-1]
@@ -1493,6 +1534,111 @@ def _dispatch_blockdense(dev, plans: list, sp: SearchParams, k: int,
         use_rows=sample.use_rows)
 
 
+def _dispatch_mesh(dev, key: tuple, plans: list, sp: SearchParams, k: int,
+                   n_pad: int):
+    """Dispatch one group of a doc-sharded index (parallel.sharded):
+    "spf" (R = 0 impact-prefix), "ssl" (sliced) or a ``batch_key``
+    group (the blockdense, dense or candidate body), rows padded to
+    ``n_pad``; counts its rows.  Returns f32[n_pad, 2, k']: scores, and
+    the int32 global slots bit for bit (``.view(torch.float32)``, read
+    back by ``unpack_mesh``) -- global slots may pass 2**24."""
+    from .parallel import sharded as mesh_exec
+    n, n_dev = len(plans), dev.n_dev
+    sample = plans[0]
+    # Window columns ("spf": the coalesced width) or query terms.
+    q_pad = key[1] if key[0] in ("spf", "ssl") else key[0]
+    q_start = np.zeros((n_dev, n_pad, q_pad), dtype=np.int32)
+    q_len = np.zeros((n_dev, n_pad, q_pad), dtype=np.int32)
+    q_idf = np.zeros((n_pad, q_pad), dtype=np.float32)
+    if key[0] == "spf":
+        _, _qs, T_g, _r, n_run_g = key
+        for row, p in enumerate(plans):
+            w = p.sl_start.shape[-1]          # coalesced rows re-pad
+            q_start[:, row, :w] = p.sl_start
+            q_len[:, row, :w] = p.sl_len
+            q_idf[row, :w] = p.sl_idf
+        scores, slots = mesh_exec.sharded_search_prefix_batch(
+            dev.postings_pack, dev.alive_mask, q_start, q_len, q_idf,
+            dev.adl, mesh=dev.mesh, T=T_g, k=k, algo=sp.algo,
+            alive_all=dev.alive_all, n_run=n_run_g,
+            k_ret=min(sp.limit, k))
+        _count("prefix", n)
+        _count("prefix_exact", n)
+        _count("sharded_prefix", n)
+        return _pack_mesh(scores, slots)
+    prog_len = len(sample.prog_ops)
+    prog_ops = np.zeros((n_pad, prog_len), dtype=np.int32)
+    prog_args = np.zeros((n_pad, prog_len), dtype=np.int32)
+    if key[0] == "ssl":
+        t_head, use_rows = sample.h_T, bool(key[9])
+        sl_rows = np.zeros((n_pad, q_pad), dtype=np.int32)
+        h_kw = {}
+        if t_head:
+            h_kw = dict(h_start=np.zeros((n_dev, n_pad), np.int32),
+                        h_len=np.zeros((n_dev, n_pad), np.int32),
+                        h_idf=np.zeros(n_pad, np.float32),
+                        h_row=np.zeros(n_pad, np.int32),
+                        h_pass=np.zeros(n_pad, np.bool_))
+        if use_rows:
+            h_kw.update(
+                dense_rows=dev.dense_rows,
+                d_row=np.full((n_pad, _MAX_DENSE_PER_QUERY), -1, np.int32),
+                d_idf=np.zeros((n_pad, _MAX_DENSE_PER_QUERY), np.float32))
+        for row, p in enumerate(plans):
+            q_start[:, row] = p.sl_start
+            q_len[:, row] = p.sl_len
+            q_idf[row] = p.sl_idf
+            if p.sl_rows is not None:
+                sl_rows[row] = p.sl_rows
+            if p.use_mask:
+                prog_ops[row] = p.prog_ops
+                prog_args[row] = p.prog_args
+            if t_head and p.h_T:
+                for name in ("h_start", "h_len"):
+                    h_kw[name][:, row] = getattr(p, name)
+                for name in ("h_idf", "h_row", "h_pass"):
+                    h_kw[name][row] = getattr(p, name)
+            if use_rows and p.d_row is not None:
+                h_kw["d_row"][row] = p.d_row
+                h_kw["d_idf"][row] = p.d_idf
+        scores, slots = mesh_exec.sharded_search_sliced_batch(
+            dev.postings_pack, dev.alive_mask, dev.doc_len, q_start,
+            q_len, q_idf, dev.adl, prog_ops, prog_args, sl_rows,
+            mesh=dev.mesh, T=sample.sl_T, k=k, algo=sp.algo,
+            use_mask=sample.use_mask, single=sample.single,
+            alive_all=dev.alive_all, depth=sample.depth,
+            n_run=sample.n_run, T_head=t_head, use_rows=use_rows, **h_kw)
+        _count("sharded_sliced", n)
+        return _pack_mesh(scores, slots)
+    for row, p in enumerate(plans):
+        q_start[:, row] = p.q_start
+        q_len[:, row] = p.q_len
+        q_idf[row] = p.q_idf
+        prog_ops[row] = p.prog_ops
+        prog_args[row] = p.prog_args
+    scores, slots = mesh_exec.sharded_search_batch(
+        dev.postings_slot, dev.postings_ltf, dev.doc_len, dev.alive_mask,
+        q_start, q_len, q_idf, dev.adl, prog_ops, prog_args,
+        mesh=dev.mesh, budget=sample.budget, k=k, algo=sp.algo,
+        use_mask=sample.use_mask, depth=sample.depth,
+        use_kernel=_sharded_kernel(sample, dev),
+        use_dense=sample.use_dense)
+    _count("sharded_fallback", n)
+    return _pack_mesh(scores, slots)
+
+
+def _pack_mesh(scores, slots):
+    """Mesh scores f32[N, k] and int32 global slots -> one f32[N, 2, k]
+    result in the sliced layout, slots carried bit for bit."""
+    return torch.stack([scores, slots.view(torch.float32)], dim=1)
+
+
+def unpack_mesh(arr: np.ndarray):
+    """A fetched mesh result f32[N, 2, k] -> (scores f32[N, k], global
+    slots int32[N, k]), the slots' bits reinterpreted, not converted."""
+    return arr[:, 0, :], arr[:, 1, :].view(np.int32)
+
+
 def execute_query(dev, query: Query, sp: SearchParams,
                   no_prefix: bool = False) -> Response:
     """Run one prepared query against the device snapshot
@@ -1503,6 +1649,13 @@ def execute_query(dev, query: Query, sp: SearchParams,
     if plan is None:
         return Response()
     k = _bucket(min(sp.limit, dev.n_slots), _MIN_K)
+    sharded = hasattr(dev, "mesh")
+    if sharded:
+        key = _group_key(plan, dev)
+        scores, slots = unpack_mesh(
+            _dispatch_mesh(dev, key, [plan], sp, k, 1).cpu().numpy())
+        return _to_response(dev, scores[0], slots[0], sp.limit,
+                            delta=_delta_results(dev, plan, sp))
     if plan.pf:
         packed = [_dispatch_prefix(
             dev, plan.sl_start[None], plan.sl_len[None], plan.sl_idf[None],
@@ -1516,7 +1669,7 @@ def execute_query(dev, query: Query, sp: SearchParams,
             # runs speculatively beside it and both come back in one
             # device->host copy.
             cplan = _build_plan(dev, query, sp, no_prefix=True)
-            if cplan is not None and _use_sliced(cplan, False, dev):
+            if cplan is not None and _use_sliced(cplan, sharded, dev):
                 packed.append(_dispatch_sliced_single(dev, cplan, sp, k))
         arrays = _fetch_finish(_fetch_start(packed))
         scores, slots, exact = unpack_prefix(arrays[0])
@@ -1533,13 +1686,13 @@ def execute_query(dev, query: Query, sp: SearchParams,
         scores, slots = unpack_sliced(arrays[1])
         return _to_response(dev, scores[0], slots[0], sp.limit,
                             delta=_delta_results(dev, cplan, sp))
-    if _use_sliced(plan, False, dev):
+    if _use_sliced(plan, sharded, dev):
         packed = _dispatch_sliced_single(dev, plan, sp, k)
         scores, slots = unpack_sliced(packed.cpu().numpy())
         _count_sliced(1, plan.h_T, plan.use_mask, plan.use_rows)
         return _to_response(dev, scores[0], slots[0], sp.limit,
                             delta=_delta_results(dev, plan, sp))
-    if _use_blockdense(plan, False, dev.n_slots):
+    if _use_blockdense(plan, sharded, dev.n_slots):
         from .ops.executor import unpack_blockdense
         packed = _dispatch_blockdense(dev, [plan], sp, k, 1)
         dev.drop_legacy_cols()
@@ -1744,12 +1897,15 @@ _BD_ELEMS_CAP = 1 << 26
 
 def _group_key(plan: _Plan, dev) -> tuple:
     """The dispatch group of one plan: its route and static shape
-    (candidate / dense plans: ``batch_key``, whose first field is an
-    int)."""
+    (candidate / dense plans, and the mesh's blockdense / dense /
+    candidate bodies: ``batch_key``, whose first field is an int)."""
+    sharded = hasattr(dev, "mesh")
+    if plan.pf and sharded:
+        return ("spf", plan.sl_start.shape[-1], plan.sl_T, 0, plan.n_run)
     if plan.pf:
         return ("pf", len(plan.sl_start), plan.sl_T, len(plan.pf_tail),
                 plan.n_run)
-    if _use_sliced(plan, False, dev):
+    if _use_sliced(plan, sharded, dev):
         # Wide planes (qs > 64) quantize n_run onto a ladder, as in the
         # reference (extra passes are exact no-ops).
         n_run_k = plan.n_run
@@ -1759,7 +1915,12 @@ def _group_key(plan: _Plan, dev) -> tuple:
                 len(plan.prog_ops) if plan.use_mask else 0,
                 plan.use_mask, plan.depth, plan.single, plan.use_rows,
                 plan.h_T, n_run_k)
-    if _use_blockdense(plan, False, dev.n_slots):
+    if sharded and _sharded_sliced(plan, dev):
+        return ("ssl", plan.sl_start.shape[-1], plan.sl_T,
+                len(plan.prog_ops) if plan.use_mask else 0,
+                plan.use_mask, plan.depth, plan.single, plan.n_run,
+                plan.h_T, plan.use_rows)
+    if _use_blockdense(plan, sharded, dev.n_slots):
         # The block kernel's signature has no postings budget.
         return ("bd", plan.q_start.shape[-1], len(plan.prog_ops),
                 plan.use_mask, plan.depth, plan.use_rows)
@@ -1768,15 +1929,22 @@ def _group_key(plan: _Plan, dev) -> tuple:
 
 def _group_rows_cap(dev, key: tuple) -> int:
     """Most rows one dispatch of group ``key`` may hold, so its planes
-    stay bounded in device memory (the reference's caps; dense groups
-    also under the blockdense cap, since they hold [N, S_pad])."""
-    bd_max_n = max(1, _BD_ELEMS_CAP // max(dev.n_slots, 1))
+    stay bounded in device memory (the reference's caps; dense groups,
+    and a mesh's candidate / dense / blockdense groups, also under the
+    blockdense cap, since they hold [N, S_pad] planes, per shard on a
+    mesh)."""
+    sharded = hasattr(dev, "mesh")
+    bd_max_n = max(1, _BD_ELEMS_CAP // max(
+        dev.slots_per_shard if sharded else dev.n_slots, 1))
     if key[0] == "bd":
         return bd_max_n
     if not isinstance(key[0], str):        # candidate / dense
         _q, _L, _mask, use_dense, budget, _depth = key
         max_n = max(1, _ELEMS_CAP // max(budget, 1))
-        return min(max_n, bd_max_n) if use_dense else max_n
+        return min(max_n, bd_max_n) if (use_dense or sharded) else max_n
+    if key[0] == "ssl":
+        max_n = max(1, _ELEMS_CAP // max(key[1] * key[2] + key[8], 1))
+        return min(max_n, bd_max_n) if key[9] else max_n   # use_rows
     elems = max(key[1] * key[2] + (key[8] if key[0] == "sl" else 0), 1)
     cap_l = _WIDE_ELEMS_CAP if key[1] > 64 else _ELEMS_CAP
     max_n = max(1, cap_l // elems)
@@ -1810,8 +1978,16 @@ def _submit_plans(dev, plans: list, queries: list[Query],
 
     t_dispatch = time.perf_counter()
     pending = []
+    sharded = hasattr(dev, "mesh")
     for key, members in chunked:
         n = len(members)
+        if sharded:                      # "spf", "ssl" or batch_key
+            packed = _dispatch_mesh(
+                dev, key, [plans[i] for i in members], sp, k,
+                _row_pad(n, key[1], key[2], pf=True) if key[0] == "spf"
+                else _row_pad(n))
+            pending.append((members, packed, "mesh"))
+            continue
         if key[0] == "pf":
             _, qs_pad, T_g, r_pad, n_run_g = key
             n_pad = _row_pad(n, qs_pad, T_g, pf=True)
@@ -2002,6 +2178,8 @@ def collect_query_batch(dev, st: _PendingBatch, sp: SearchParams,
                 fallback_ix.extend(members[r] for r in np.nonzero(~ok)[0])
                 members = [i for r, i in enumerate(members) if ok[r]]
                 scores, slots = scores[ok], slots[ok]
+        elif tag == "mesh":
+            scores, slots = unpack_mesh(arr[:n])
         else:
             # Every other route shares the sliced [N, 2, k] layout.
             scores, slots = unpack_sliced(arr)

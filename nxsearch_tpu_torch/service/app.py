@@ -3,7 +3,8 @@
 Port of nxsearch_tpu/service/app.py: the same routes, index cache,
 error shapes and extensions; the engine under it is
 nxsearch_tpu_torch on one torch device (``--device``, default
-``cuda``).
+``cuda``), or doc-sharded over a mesh of them
+(``SearchService(basedir, mesh=...)``; no flag, as in the reference).
 
 Endpoint shapes mirror the reference's OpenResty service exactly
 (svc-src/nxsearch_svc.lua):
@@ -157,10 +158,11 @@ class _IndexCache:
 class SearchService:
     """Route dispatch decoupled from the HTTP plumbing (testable)."""
 
-    def __init__(self, basedir: str, device=None):
+    def __init__(self, basedir: str, device=None, mesh=None):
         # ``device``: the engine's torch device (default ``cuda``, which
-        # raises where no card is present; nxs.resolve_device).
-        self.nxs = Nxs(basedir, device=device)
+        # raises where no card is present; nxs.resolve_device); ``mesh``:
+        # devices to doc-shard every index over (parallel.make_mesh).
+        self.nxs = Nxs(basedir, device=device, mesh=mesh)
         self.cache = _IndexCache(self.nxs)
         self.blobs = BlobStore(basedir)
         self.enable_py_post = bool(os.environ.get("NXS_ENABLE_PY_POST"))

@@ -220,3 +220,52 @@ def test_ingest_service_entry_phases_rehearsal(tmp_path, monkeypatch):
     assert svc["seq_launches"]["one"] == svc["seq_typos"] > 0
     assert svc["requests"] > 0
     assert ep["cli_timings"] and ep["service_ready_s"] > 0
+
+
+def test_mesh_phase_rehearsal(tmp_path, monkeypatch):
+    """Phase 14 on a small CPU index: a mesh of four CPU shards over the
+    same basedir -- pure-OR rows on the prefix body, mixed rows on the
+    sliced and fallback bodies, blockdense rows on the kernel body (the
+    segsum twin, one replayed), dense rows, single queries with typos
+    and a removal -- every answer equal to the single device's, and the
+    dryrun.  The kernels' plain twins bump their launch counts."""
+    import bench
+    from nxsearch_tpu_torch import Nxs, Params
+    from nxsearch_tpu_torch.ops import kernels
+
+    for name, value in {"N_DOCS": 3000, "VOCAB": 6000, "N_QUERIES": 512,
+                        "BATCH": 128, "N_FUZZY": 16, "N_MIXED": 256,
+                        "N_BD": 64, "N_DENSE": 8, "N_MESH_DENSE": 8,
+                        "N_MESH_SINGLE": 8}.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    for twin, kernel in (("myers_distances_ref", kernels.MYERS),
+                         ("myers_distances_one_ref", kernels.MYERS_ONE),
+                         ("blockdense_scores_ref", kernels.SEGSUM)):
+        def counted(*a, _fn=getattr(kernels, twin), _k=kernel, **kw):
+            _k.launches += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(kernels, twin, counted)
+    for name, fn in {"synchronize": lambda *a, **kw: None,
+                     "empty_cache": lambda: None}.items():
+        monkeypatch.setattr(torch.cuda, name, fn)
+    workdir = str(tmp_path / "work")
+    nxs = Nxs(workdir, device="cpu")
+    idx = nxs.index_create("bench")
+    idx.add_many(bench.zipf_range(0, 3000, 6000, 20))
+    sp = Params().set_uint("limit", 10)
+    idx.search("w00001", sp)                  # builds the snapshot
+    # Small tensors: one intra-op thread runs them faster, and keeps
+    # doing so when the suite's workers share the cores.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = chip_smoke.mesh_phase(workdir, idx, sp, "a card, 700 W",
+                                    {"qps": 1.0, "mixed_qps": 1.0}, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+        nxs.close()
+    assert out["stats"]["sharded_prefix"] > 0
+    assert out["mixed_stats"]["sharded_fallback"] > 0
+    assert out["bd_segsum_launches"] >= 4 and out["bd_max_abs_err"] == 0.0
+    assert out["launches"]["nxs_myers_distances_one"] > 0
+    assert out["shard_bytes"] and len(out["dense_rows"]) == 4

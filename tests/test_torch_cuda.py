@@ -576,3 +576,108 @@ def test_kernels_launch_from_a_fresh_thread():
         assert kernel.launches == before + 1, kernel.symbol
         for got, want in zip(out["got"], twin()):
             assert torch.equal(got, want), kernel.symbol
+
+
+def _up_to_ties(want, got, query):
+    """``got`` against ``want`` (one result deeper, from an index whose
+    slots order ties differently): scores in rank order within 1e-4, and
+    each id one that ``want`` holds with its score within 1e-4 -- or,
+    past ``want``'s end, one that ties its last score."""
+    sc_w = [s for _, s in want.results]
+    deep = dict(want.results)
+    n = len(got.results)
+    assert n == min(len(sc_w), 10), query
+    for (d, s), w in zip(got.results, sc_w):
+        assert abs(s - w) <= 1e-4, (query, got.results, want.results)
+        assert ((d in deep and abs(deep[d] - s) <= 1e-4)
+                or (len(sc_w) == 11 and abs(s - sc_w[-1]) <= 1e-4)), \
+            (query, d, got.results, want.results)
+
+
+def test_mesh_on_card_matches_the_card(tmp_path):
+    """A mesh of two shards of one card against the port on the card
+    over one basedir: plain (the R = 0 prefix body), masked with
+    dense-row terms (the blockdense body: segsum launches), > 32-term
+    masked (the dense body) and typo queries, batched and one at a
+    time."""
+    _need_card()
+    from nxsearch_tpu_torch import Nxs, Params
+    from nxsearch_tpu_torch import search as psearch
+
+    import bench
+
+    _cpu, _idx_c, gpu, idx_g, words, probs = _zipf_pair(tmp_path)
+    _cpu.close()
+    card = torch.device("cuda", 0)
+    mesh = Nxs(str(tmp_path), mesh=[card] * 2)
+    idx_m = mesh.index_open("t")
+    idx_m.search("w00001")                    # builds the shards
+    rng = np.random.default_rng(7)
+    heavy = [idx_g.host.term_values[t - 1]
+             for t in sorted(idx_m.dev.dense_row_of)[:4]]
+    queries = (bench.make_queries(120, words, probs, rng)
+               + bench.make_mixed_queries(120, words, probs, rng)
+               + [f"{h} AND {words[100 + i]}" for i, h in enumerate(heavy)]
+               + [f"{words[200 + i]} {words[300 + i]} AND NOT {h}"
+                  for i, h in enumerate(heavy)]
+               + _wide_masked(words, rng, 6)
+               + bench.make_fuzzy_queries(40, words, probs, rng, "x"))
+    assert idx_m.dev.dense_row_of and idx_m.dev.postings_pack[0].is_cuda
+    psearch.EXEC_STATS.clear()
+    before = kernels.SEGSUM.launches
+    got = idx_m.search_many(queries, Params().set_uint("limit", 10))
+    stats = dict(psearch.EXEC_STATS)
+    assert kernels.SEGSUM.launches >= before + 2, stats
+    for key in ("sharded_prefix", "sharded_sliced", "sharded_fallback"):
+        assert stats.get(key, 0) > 0, stats
+    want = idx_g.search_many(queries, Params().set_uint("limit", 11))
+    for q, w, g in zip(queries, want, got):
+        _up_to_ties(w, g, q)
+    assert sum(len(g.results) for g in got) > 0
+    for q in queries[::25]:
+        _up_to_ties(idx_g.search(q, Params().set_uint("limit", 11)),
+                    idx_m.search(q, Params().set_uint("limit", 10)), q)
+    mesh.close()
+    gpu.close()
+
+
+def test_mesh_kernel_body_matches_candidate_on_card(tmp_path):
+    """The blockdense shard body (the segsum kernel) against the
+    candidate body on two shards of the card."""
+    _need_card()
+    from nxsearch_tpu_torch import Nxs
+    from nxsearch_tpu_torch import search as psearch
+    from nxsearch_tpu_torch.parallel import sharded as psh
+    from nxsearch_tpu_torch.query.parser import parse_query
+    from nxsearch_tpu_torch.query.prepare import prepare
+
+    import bench
+
+    nxs = Nxs(str(tmp_path), mesh=[torch.device("cuda", 0)] * 2)
+    idx = nxs.index_create("t")
+    idx.add_many(bench.zipf_range(0, 3000, 2000, 20))
+    idx.search("w00001")
+    dev = idx.dev
+    sp = psearch.get_search_params(0, None)
+    for text in ("w00003 AND NOT w00010", "w00020 w00030 AND w00001",
+                 "(w00005 OR w00050) AND NOT w00002"):
+        plan = psearch._build_plan(dev, prepare(
+            parse_query(text), idx.pipeline, idx.host.term_lookup,
+            fuzzymatch=False), sp)
+        args = (dev.postings_slot, dev.postings_ltf, dev.doc_len,
+                dev.alive_mask, plan.q_start[:, None, :],
+                plan.q_len[:, None, :], plan.q_idf[None], dev.adl,
+                plan.prog_ops[None], plan.prog_args[None])
+        kw = dict(mesh=dev.mesh, budget=plan.budget, k=64, algo=0,
+                  use_mask=True, depth=plan.depth)
+        before = kernels.SEGSUM.launches
+        got = psh.sharded_search_batch(*args, use_kernel=True, **kw)
+        assert kernels.SEGSUM.launches == before + 2
+        want = psh.sharded_search_batch(*args, **kw)
+        live = {int(s): float(v) for v, s in zip(*(t[0].cpu().numpy()
+                                                  for t in want)) if v > 0}
+        assert live, text
+        assert {int(s): float(v) for v, s in zip(
+            *(t[0].cpu().numpy() for t in got)) if v > 0} == \
+            pytest.approx(live, abs=1e-4), text
+    nxs.close()

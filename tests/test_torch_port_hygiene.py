@@ -1,7 +1,7 @@
 """Port hygiene: the carried-over host modules stay byte-identical to
 the reference (the planner AST-identical), the port never imports jax,
-and its kernel wrappers never fall back to a plain twin for a non-CPU
-tensor."""
+its kernel wrappers never fall back to a plain twin for a non-CPU
+tensor, and the files that predate the port stay as they were."""
 
 import ast
 import functools
@@ -48,6 +48,8 @@ def _port_sources():
 
 
 def test_no_jax_import_in_port():
+    assert os.path.join(PORT, "parallel", "sharded.py") in set(
+        _port_sources())
     pattern = re.compile(r"^\s*(import jax|from jax|import nxsearch_tpu\b"
                          r"|from nxsearch_tpu\b(?!_torch))", re.M)
     offenders = []
@@ -86,17 +88,21 @@ nxs.close()
 
 
 def test_entry_modules_import_without_jax():
-    """The service, the CLI and parallel ingest import in a process in
-    which jax cannot be imported, and import no jax."""
+    """The service, the CLI, parallel ingest and the mesh import in a
+    process in which jax cannot be imported, and import no jax; the mesh
+    runs its dryrun on two CPU shards there."""
     code = f"""
 import sys
 sys.modules["jax"] = None
 sys.path.insert(0, {ROOT!r})
 import nxsearch_tpu_torch.benchmark
 import nxsearch_tpu_torch.ingest
+import nxsearch_tpu_torch.parallel
 import nxsearch_tpu_torch.service
 from nxsearch_tpu_torch import parallel_ingest
+from nxsearch_tpu_torch.parallel import dryrun_multichip
 from nxsearch_tpu_torch.service import SearchService, main
+dryrun_multichip(2)
 assert not any(m == "jax" or m.startswith(("jax.", "nxsearch_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("ok")
@@ -187,7 +193,8 @@ PLANNER = ["get_search_params", "_bucket", "_slice_tier", "_head_tier",
            "_prefix_mode", "_row_pad", "_qs_pad", "_is_pure_or",
            "_Plan", "_build_plan_prefix", "_build_plan", "_pow2ceil",
            "_build_plans", "_plans_prefix", "_eval_program_np",
-           "_delta_results", "_use_sliced", "_kernel_crows",
+           "_delta_results", "_use_sliced", "_sharded_sliced",
+           "_kernel_crows",
            "_to_response", "_ladder",
            "_coalesce_sliced_groups", "_coalesce_prefix_groups",
            "submit_query_batch", "_to_responses_group", "search",
@@ -217,3 +224,37 @@ def test_planner_is_the_reference_planner(name):
     ref = _defs(os.path.join(REF, "search.py"))
     port = _defs(os.path.join(PORT, "search.py"))
     assert port[name] == ref[name], name
+
+
+# Files that predate the port: the JAX package and what beside it the
+# port must not touch.
+PREDATING = ["nxsearch_tpu", "bench.py", "tools", "__graft_entry__.py",
+             "tests/test_sharded.py", "tests/conftest.py"]
+
+
+def test_files_that_predate_the_port_are_unchanged():
+    """Against the commit before the port began (the parent of the
+    commit that added nxsearch_tpu_torch/__init__.py) no file of
+    PREDATING is modified, deleted or renamed -- the port adds files of
+    its own under tools/ -- except that tests/conftest.py only gains
+    the registration of the ``cuda`` marker."""
+    def git(*args):
+        return subprocess.run(["git", *args], cwd=ROOT, capture_output=True,
+                              text=True, timeout=60)
+
+    first = git("log", "--diff-filter=A", "--format=%H", "--",
+                "nxsearch_tpu_torch/__init__.py")
+    if first.returncode or not first.stdout.split():
+        pytest.skip("not a git checkout with the port's history")
+    base = first.stdout.split()[-1] + "~1"
+    names = git("diff", "--name-only", "--diff-filter=DMRT", base, "--",
+                *PREDATING)
+    assert names.returncode == 0, names.stderr
+    assert set(names.stdout.split()) <= {"tests/conftest.py"}
+    diff = git("diff", "-U0", base, "--", "tests/conftest.py").stdout
+    body = [line for line in diff.splitlines()
+            if line[:1] in "+-" and line[:3] not in ("+++", "---")]
+    assert all(line.startswith("+") for line in body), body
+    assert "".join(body) in ("", '+    config.addinivalue_line(+        '
+                                 '"markers", "cuda: needs a CUDA card; skips '
+                                 'where none is present")')

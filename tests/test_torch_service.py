@@ -277,6 +277,70 @@ def test_exec_stats_counts_survive_threads():
     assert psearch.EXEC_STATS.pop("_stress") == 16 * 20_000
 
 
+def test_blockdense_bounds_cache_survives_threads(tmp_path, monkeypatch):
+    """Two request threads of blockdense queries (masked hybrid off)
+    over far more distinct non-dense terms than a 4-row bounds cache
+    holds: each answer equals the same query run alone.  A thread's
+    cache rows must not be evicted and rewritten between its
+    ``bounds_crows`` and the kernel that reads them; a sleep after each
+    ``bounds_crows`` widens that window so the other thread runs in it
+    whenever the rows are not protected."""
+    import time
+
+    from nxsearch_tpu_torch import Nxs
+    from nxsearch_tpu_torch.index.device import DeviceIndex
+
+    monkeypatch.setattr(DeviceIndex, "BOUNDS_CACHE_ROWS", 4)
+    real_crows = DeviceIndex.bounds_crows
+
+    def slow_crows(self, term_ids):
+        out = real_crows(self, term_ids)
+        time.sleep(0.001)
+        return out
+
+    monkeypatch.setattr(DeviceIndex, "bounds_crows", slow_crows)
+    monkeypatch.setattr(psearch, "_MASKED_HYBRID", False)
+    nxs = Nxs(str(tmp_path), device="cpu")
+    idx = nxs.index_create("bd")
+    idx.add_many(bench.zipf_range(0, 2000, 600, 20))
+    idx.search("w00001")                      # builds the snapshot
+    dev = idx.dev
+    values = idx.host.term_values
+    dense = [values[t - 1] for t in sorted(dev.dense_row_of)]
+    sparse = [values[t - 1] for t in range(1, dev.base_nterms + 1)
+              if t not in dev.dense_row_of and dev.term_range(t)[1] > 0]
+    assert dense and len(sparse) > 200
+    queries = [f"{dense[i % len(dense)]} AND {sparse[i]}" if i % 2 == 0
+               else f"{sparse[i]} {sparse[i + 100]} AND NOT "
+                    f"{dense[i % len(dense)]}" for i in range(100)]
+    want = {q: idx.search(q).results for q in queries}
+    assert sum(map(len, want.values())) > 0
+    psearch.EXEC_STATS.clear()
+    bad = []
+
+    def run(order):
+        for q in order:
+            got = idx.search(q).results
+            if got != want[q]:
+                bad.append(q)
+
+    saved = sys.getswitchinterval()
+    try:
+        sys.setswitchinterval(1e-6)
+        threads = [threading.Thread(target=run, args=(order,)) for order in
+                   (queries * 3, queries[::-1] * 3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(saved)
+        nxs.close()
+    assert psearch.EXEC_STATS.get("blockdense", 0) == 6 * len(queries)
+    assert not bad, f"{len(bad)} answers differ, e.g. {bad[0]!r}"
+
+
 def test_service_defaults_to_the_card(tmp_path, monkeypatch):
     """SearchService and main take ``cuda`` unless told otherwise: with
     no card they raise, and never drop to the CPU."""
