@@ -6,8 +6,9 @@ resolution by the forward, transposed (NXS_FUZZY_REV=1) and
 single-query Myers kernels, boolean (AND / NOT) search on the masked
 sliced route and on the blockdense route, and the fallback routes
 (the dense and candidate executors, impact-prefix plans with wide
-terms) -- at the benchmark's 1M-document tier, through the entry
-points a user calls (Nxs, Index.add_many, search, search_pipelined,
+terms) -- at the benchmark's 1M-document tier, and a snapshot of
+17,825,792 device slots (phase 15), through the entry points a user
+calls (Nxs, Index.add_many, search, search_pipelined,
 search_many, parallel_ingest, the REST service in process and as
 ``python -m``, the benchmark CLI), and checks every hand-written
 kernel of those paths against its plain PyTorch twin.  Phases (any failure exits non-zero and prints no result):
@@ -142,13 +143,32 @@ kernel of those paths against its plain PyTorch twin.  Phases (any failure exits
    to an adjacent swap, or, where three or more scores lie within 1e-4,
    up to that group; the count logged); QPS beside phases 3 and 6's;
    each drive with the launch counts from zero; then
-   dryrun_multichip(2, devices=[cuda:0] * 2).
+   dryrun_multichip(2, devices=[cuda:0] * 2);
+15. large-snapshot phase, after phase 3's index is closed: 17,000,000
+   bench.zipf_range documents at mean length 5 (the 1M tier's
+   vocabulary; texts made by spawned processes, indexed by
+   Index.add_many in chunks) into a basedir of its own, and a snapshot
+   of 17,825,792 device slots on the card with its exact int32 slot
+   column (build seconds, device bytes, peak memory logged); every row
+   on the candidate or dense executor, as the reference routes such a
+   snapshot: 8192 make_queries through search_pipelined, 512 typo and
+   2048 mixed-trace queries through search_many (forward Myers
+   launches), 64 Index.search calls, half typos (one single-query
+   launch per distinct typo), 8 > 32-term masked queries (the dense
+   plane), each drive with the counts from zero and its routes
+   asserted; the numpy oracles on 64 plain, 16 fuzzy, 32 boolean and
+   the 8 dense answers; 16 documents in odd and 4 in even device slots
+   from 2**24 up, each found by a term of df <= 1000 with the oracle's
+   scores; the answers that f32 slots would have sent to another
+   document counted; one of those documents removed and gone from its
+   term's answer.
 
 Each phase logs its seconds and numbers beside the card's name and
 power limit, and the device memory it allocates.
 
 The next-to-last lines are the kernel table (JSON: per kernel its
-launches on its path, exactness, kernel / plain times, and its bound:
+launches on its path, on the mesh's and on the large snapshot's,
+exactness, kernel / plain times, and its bound:
 the larger of the bytes it must move over the card's memory rate and
 its operations over the card's peak rate for their type) and the card
 line; the last line is {"ok": true, "device": {...}}.
@@ -199,6 +219,21 @@ SVC_OPEN_LIMIT_S = 300  # a subprocess service must answer within this
 MESH_SHARDS = 4         # phase 14: shards of the one card
 N_MESH_DENSE = 64       # > 32-term masked queries on the mesh
 N_MESH_SINGLE = 64      # Index.search calls on the mesh
+N_LARGE = 17_000_000    # phase 15: 17,825,792 device slots
+LARGE_MEAN_LEN = 5      # Poisson(5) clipped at 5: about 6 tokens a doc
+LARGE_CHUNK = 1 << 17   # documents per add_many call
+LARGE_GEN_WORKERS = 8   # processes generating the texts: min(this, cpus)
+LARGE_SLOT_FROM = 1 << 24   # f32 holds every slot below this exactly
+N_LARGE_QUERIES = 8192
+N_LARGE_FUZZY = 512
+N_LARGE_MIXED = 2048
+N_LARGE_SINGLE = 64     # half of them typos
+N_LARGE_DENSE = 8       # > 32-term masked queries (the dense plane)
+N_LARGE_ORACLE = 64     # plain answers held to the oracle
+N_LARGE_FUZZY_ORACLE = 16
+N_LARGE_BOOL_ORACLE = 32
+N_ODD, N_EVEN = 16, 4   # targeted documents past LARGE_SLOT_FROM
+LARGE_DF_MAX = 1000     # their query term's df at most this
 TOL = 1e-4               # score tolerance of the reference's own tests
 
 # The card's peak rates for the kernels' bounds: HBM3 bytes per second
@@ -735,6 +770,25 @@ def workload():
     return queries, batches, fuzzy
 
 
+class SlotOfId:
+    """doc id -> host slot, by a binary search of the sorted ids (a dict
+    of 17M ids would cost seconds and gigabytes)."""
+
+    def __init__(self, doc_ids):
+        import numpy as np
+
+        self.order = np.argsort(doc_ids, kind="stable")
+        self.ids = np.asarray(doc_ids)[self.order]
+
+    def __getitem__(self, doc_id: int) -> int:
+        import numpy as np
+
+        at = int(np.searchsorted(self.ids, doc_id))
+        if at == len(self.ids) or self.ids[at] != doc_id:
+            raise KeyError(doc_id)
+        return int(self.order[at])
+
+
 class HostOracle:
     """The host CSR in host slot order and what the oracles need
     beside it: each slot's rank in device order (the tie rule), the
@@ -751,7 +805,7 @@ class HostOracle:
         self.dev_rank = np.empty(len(dl_host), dtype=np.int64)
         self.dev_rank[np.argsort(dl_host, kind="stable")] = \
             np.arange(len(dl_host))
-        self.slot_of_id = {int(d): s for s, d in enumerate(csr["doc_ids"])}
+        self.slot_of_id = SlotOfId(csr["doc_ids"])
         encoded = [v.encode("utf-8") for v in host.term_values]
         self.by_len = {}
         for n in {len(e) for e in encoded}:
@@ -1241,8 +1295,8 @@ def segsum_phase(idx, queries: list[str]) -> dict:
             **b}
 
 
-def dense_queries(idx) -> list[str]:
-    """N_DENSE masked queries of 33-48 unique words drawn from the
+def dense_queries(idx, n: int = 0) -> list[str]:
+    """``n`` (N_DENSE) masked queries of 33-48 unique words drawn from the
     damped Zipf vocab's words in the dictionary (seed 47), alternately
     ``(a OR b OR ...) AND NOT z`` and ``(a OR ...) AND (m OR ...)``.
     More than 32 terms: the dense executor's packed bitmaps."""
@@ -1256,7 +1310,7 @@ def dense_queries(idx) -> list[str]:
     qp /= qp.sum()
     rng = np.random.default_rng(47)
     out = []
-    for i in range(N_DENSE):
+    for i in range(n or N_DENSE):
         ws = [str(w) for w in words[rng.choice(
             len(words), int(rng.integers(33, 49)), replace=False, p=qp)]]
         half = len(ws) // 2
@@ -2149,6 +2203,325 @@ def entry_point_phase(workdir: str, idx, sp, card: str,
             "service_gib": svc_gib, "cli_s": cli_s, "cli_timings": timings}
 
 
+def large_ingest(idx) -> float:
+    """Phase 15's corpus into ``idx``: bench.zipf_range texts made by
+    min(LARGE_GEN_WORKERS, cpus) spawned processes (a bounded window of
+    chunks ahead), indexed in order by Index.add_many in this process;
+    returns the seconds."""
+    import collections
+    import functools
+    import itertools
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    import bench
+
+    gen = functools.partial(bench.zipf_range, vocab=VOCAB,
+                            mean_len=LARGE_MEAN_LEN)
+    ranges = iter([(lo, min(lo + LARGE_CHUNK, N_LARGE))
+                   for lo in range(0, N_LARGE, LARGE_CHUNK)])
+    workers = min(LARGE_GEN_WORKERS, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    if workers <= 1:
+        for lo, hi in ranges:
+            idx.add_many(gen(lo, hi))
+        return time.perf_counter() - t0
+    with ProcessPoolExecutor(workers,
+                             mp_context=mp.get_context("spawn")) as pool:
+        ahead = collections.deque(pool.submit(gen, *r) for r in
+                                  itertools.islice(ranges, 2 * workers))
+        while ahead:
+            docs = ahead.popleft().result()
+            nxt = next(ranges, None)
+            if nxt is not None:
+                ahead.append(pool.submit(gen, *nxt))
+            idx.add_many(docs)
+    return time.perf_counter() - t0
+
+
+def f32_rounded(oracle: HostOracle, responses) -> int:
+    """How many answers name a document whose device slot f32 does not
+    hold exactly: had the slots ridden in f32 by value, those answers
+    would have named another document."""
+    import numpy as np
+
+    n = 0
+    for r in responses:
+        slots = np.asarray([oracle.dev_rank[oracle.slot_of_id[d]]
+                            for d, _ in r.results], dtype=np.int64)
+        n += bool((slots.astype(np.float32).astype(np.int64) != slots).any())
+    return n
+
+
+def targeted_docs(idx, rng):
+    """N_ODD documents in odd and N_EVEN in even device slots from
+    LARGE_SLOT_FROM up, each with a term of df <= LARGE_DF_MAX (one term
+    per document, none twice): [(doc id, device slot, term id)]."""
+    host, dev = idx.host, idx.dev
+    df = host.term_df.view()
+    n_host = len(dev.slot_perm)
+    want = {1: N_ODD, 0: N_EVEN}
+    out, used = [], set()
+    for s in rng.permutation(n_host - LARGE_SLOT_FROM) + LARGE_SLOT_FROM:
+        s = int(s)
+        if not want[s % 2]:
+            continue
+        h = int(dev.slot_perm[s])
+        start, n = int(host.doc_start.a[h]), int(host.doc_n.a[h])
+        for t in host.p_term.a[start: start + n].tolist():
+            if df[t - 1] <= LARGE_DF_MAX and t not in used:
+                used.add(t)
+                out.append((int(host.doc_ids.a[h]), s, t))
+                want[s % 2] -= 1
+                break
+        if not any(want.values()):
+            return out
+    raise AssertionError(f"documents past {LARGE_SLOT_FROM} with a term "
+                         f"of df <= {LARGE_DF_MAX}: {len(out)} found")
+
+
+def large_phase(sp, card: str, device: str = "cuda") -> dict:
+    """Phase 15: a snapshot of 2**24 device slots and more.
+
+    N_LARGE documents of bench.zipf_range (the 1M tier's vocabulary and
+    generator) at mean length LARGE_MEAN_LEN, through Index.add_many
+    into a basedir of its own, then a snapshot on ``device``:
+    17,825,792 device slots.  What is cut is document length (40 tokens
+    in the 1M tier, about 100 in a DPR passage, about 6 here), so that
+    the ingest fits the script's time; the slot count, which this
+    phase is about, is not cut.  The planner gates the impact-prefix,
+    sliced and blockdense routes below 2**24 slots, as the reference's
+    does, so every row takes the candidate or dense executor, which
+    read the snapshot's exact int32 slot column.
+
+    Traffic, each drive with the counts from zero: N_LARGE_QUERIES
+    make_queries (seed 42) through search_pipelined in batches of
+    BATCH, N_LARGE_FUZZY typo queries and N_LARGE_MIXED mixed-trace
+    queries (seed 43) through search_many (forward Myers launches),
+    N_LARGE_SINGLE Index.search calls, half of them typos (single-query
+    Myers launches), N_LARGE_DENSE > 32-term masked queries (the dense
+    executor's [rows, S_pad] plane).  Checked: the routes, the numpy
+    oracles on sampled answers, documents in odd and even device slots
+    from 2**24 up found by a term of df <= LARGE_DF_MAX with the
+    oracle's scores, and a removal of one of them."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import bench
+    from nxsearch_tpu_torch import Nxs, Params
+    from nxsearch_tpu_torch import search as search_mod
+
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated() if on_card else 0
+    words, probs = vocab()
+    out = {"docs": N_LARGE}
+    served = [0]
+    submit = search_mod._submit_plans
+
+    def counted(dev_, plans, *a, **kw):
+        served[0] += sum(p is not None for p in plans)
+        return submit(dev_, plans, *a, **kw)
+
+    totals = {}
+
+    def drive(name, fn, rows=None):
+        """Run ``fn`` with the counts from zero; every row must take
+        the candidate or dense executor."""
+        if on_card:
+            torch.cuda.synchronize()
+        reset_counts()
+        served[0] = 0
+        t0 = time.perf_counter()
+        got = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        stats = dict(search_mod.EXEC_STATS)
+        launches = launch_counts()
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        rows = served[0] if rows is None else rows
+        plain = stats.get("candidate", 0) + stats.get("dense", 0)
+        if any(stats.get(k, 0) for k in ("prefix", "sliced", "blockdense")) \
+                or plain != rows or not rows:
+            raise AssertionError(f"phase 15 {name}: {rows} rows on the "
+                                 f"candidate / dense executors expected, "
+                                 f"got {stats}")
+        out[name] = {"seconds": dt, "stats": stats, "launches": launches}
+        return got, dt
+
+    ldir = tempfile.mkdtemp(prefix="nxs_large_")
+    nxs = Nxs(ldir, device=device)
+    search_mod._submit_plans = counted
+    try:
+        idx = nxs.index_create("large")
+        ingest_s = large_ingest(idx)
+        log(f"phase 15 ingest ({card}): {N_LARGE} docs (mean length "
+            f"{LARGE_MEAN_LEN}) through add_many in {ingest_s} s, "
+            f"{N_LARGE / ingest_s} docs/s; {idx.host.p_term.n} postings")
+        t0 = time.perf_counter()
+        idx.search("w00001", sp)                 # builds the snapshot
+        if on_card:
+            torch.cuda.synchronize()
+        snap_s = time.perf_counter() - t0
+        dev = idx.dev
+        tensors = {"postings_pack": dev.postings_pack,
+                   "slot_column": dev.postings_slot,
+                   "dense_rows": dev.dense_rows, "doc_len": dev.doc_len,
+                   "alive_mask": dev.alive_mask}
+        exact = dev.postings_slot is dev._slot_exact
+        if dev.n_slots < LARGE_SLOT_FROM or exact != (
+                dev.n_slots >= 1 << 24) or any(
+                t.device.type != device for t in tensors.values()):
+            raise AssertionError(f"phase 15: a snapshot of {dev.n_slots} "
+                                 f"slots (exact slot column: {exact}) on "
+                                 f"{device} expected")
+        sizes = {k: t.numel() * t.element_size() for k, t in tensors.items()}
+        snap_mem = (torch.cuda.memory_allocated() - mem0) if on_card else 0
+        log(f"phase 15 snapshot ({card}): {snap_s} s; {dev.n_slots} device "
+            f"slots, {dev.n_postings} padded postings, "
+            f"{dev.dense_rows.shape[0]} dense rows; bytes {sizes} "
+            f"(the exact slot column 4 B a posting); {snap_mem} B "
+            "allocated")
+        t0 = time.perf_counter()
+        oracle = HostOracle(idx)
+        log(f"phase 15 oracle build: {time.perf_counter() - t0} s")
+
+        rng = np.random.default_rng(42)
+        queries = bench.make_queries(N_LARGE_QUERIES, words, probs, rng)
+        batches = [queries[i: i + BATCH]
+                   for i in range(0, N_LARGE_QUERIES, BATCH)]
+        fuzzy = bench.make_fuzzy_queries(N_LARGE_FUZZY, words, probs,
+                                         np.random.default_rng(45), "x")
+        mixed = bench.make_mixed_queries(N_LARGE_MIXED, words, probs,
+                                         np.random.default_rng(43))
+        single = (bench.make_fuzzy_queries(
+            N_LARGE_SINGLE // 2, words, probs, np.random.default_rng(46),
+            "h") + queries[: N_LARGE_SINGLE // 2])
+        dense = dense_queries(idx, N_LARGE_DENSE)
+
+        res, dt = drive("plain", lambda: idx.search_pipelined(batches, sp))
+        plain = [r for b in res for r in b]
+        out["plain"]["qps"] = N_LARGE_QUERIES / dt
+        fz, dt = drive("fuzzy", lambda: idx.search_many(fuzzy, sp))
+        out["fuzzy"]["qps"] = N_LARGE_FUZZY / dt
+        if out["fuzzy"]["launches"]["nxs_myers_distances"] <= 0:
+            raise AssertionError("phase 15: no forward Myers launch")
+        mx, dt = drive("mixed", lambda: idx.search_many(mixed, sp))
+        out["mixed"]["qps"] = N_LARGE_MIXED / dt
+        # The plain half's words were resolved by the plain drive.
+        typos = typos_of(idx, single[: N_LARGE_SINGLE // 2])
+        times = []
+
+        def singles():
+            got = []
+            for q in single:
+                t1 = time.perf_counter()
+                got.append(idx.search(q, sp))
+                times.append((time.perf_counter() - t1) * 1e3)
+            return got
+
+        one, _dt = drive("single", singles, rows=N_LARGE_SINGLE)
+        out["single"]["ms_per_search"] = median(times)
+        n_one = out["single"]["launches"]["nxs_myers_distances_one"]
+        if n_one != len(typos) or not typos:
+            raise AssertionError(f"phase 15: one single-query launch per "
+                                 f"distinct typo ({len(typos)}) expected, "
+                                 f"got {n_one}")
+        dn, dt = drive("dense", lambda: idx.search_many(dense, sp))
+        out["dense"]["qps"] = N_LARGE_DENSE / dt
+        if out["dense"]["stats"].get("dense", 0) != N_LARGE_DENSE:
+            raise AssertionError(f"phase 15: {N_LARGE_DENSE} dense rows "
+                                 f"expected: {out['dense']['stats']}")
+        for name in ("plain", "fuzzy", "mixed", "single", "dense"):
+            got = {"plain": plain, "fuzzy": fz, "mixed": mx, "single": one,
+                   "dense": dn}[name]
+            check_finite(got)
+            o = out[name]
+            log(f"phase 15 {name} ({card}): {o['seconds']} s"
+                + (f", {o['qps']} QPS" if "qps" in o else "")
+                + (f", {o['ms_per_search']} ms per search"
+                   if "ms_per_search" in o else "")
+                + f"; routes {o['stats']}; launches {o['launches']}")
+
+        # Oracles on sampled answers.
+        t0 = time.perf_counter()
+        pick = np.random.default_rng(7)
+        oracle.n_typos = 0
+        for i in pick.choice(N_LARGE_QUERIES, N_LARGE_ORACLE, replace=False):
+            oracle.check_plain(queries[int(i)], plain[int(i)])
+        for i in pick.choice(N_LARGE_FUZZY, N_LARGE_FUZZY_ORACLE,
+                             replace=False):
+            oracle.check_plain(fuzzy[int(i)], fz[int(i)])
+        if oracle.n_typos < N_LARGE_FUZZY_ORACLE:
+            raise AssertionError(f"phase 15: only {oracle.n_typos} typo "
+                                 "tokens resolved")
+        masked = [i for i, q in enumerate(mixed) if " AND " in q]
+        for i in pick.choice(masked, N_LARGE_BOOL_ORACLE, replace=False):
+            oracle.check_boolean(mixed[int(i)], mx[int(i)])
+        for q, r in zip(dense, dn):
+            oracle.check_boolean(q, r)
+        log(f"phase 15 oracle: {N_LARGE_ORACLE} plain, "
+            f"{N_LARGE_FUZZY_ORACLE} fuzzy, {N_LARGE_BOOL_ORACLE} boolean "
+            f"and {N_LARGE_DENSE} dense answers agree "
+            f"({time.perf_counter() - t0} s)")
+
+        # Documents past 2**24 in odd and even device slots, each found
+        # by a rare term of its own with the oracle's scores.
+        docs = targeted_docs(idx, np.random.default_rng(12))
+        deep = Params().set_uint("limit", LARGE_DF_MAX)
+        terms = [idx.host.term_values[t - 1] for _d, _s, t in docs]
+        found = idx.search_many(terms, deep)
+        for (doc, slot, t), q, resp in zip(docs, terms, found):
+            if doc not in [d for d, _ in resp.results]:
+                raise AssertionError(f"phase 15: doc {doc} (device slot "
+                                     f"{slot}) missing from {q!r}")
+            ids_o, sc_o, acc = oracle_top(oracle.csr, oracle.host, [t],
+                                          oracle.dev_rank, LARGE_DF_MAX)
+            check_against_oracle(resp, ids_o, sc_o, acc, oracle.slot_of_id,
+                                 q)
+        odd = sum(s % 2 for _d, s, _t in docs)
+        answers = plain + fz + mx + one + dn + found
+        rounded = f32_rounded(oracle, answers)
+        log(f"phase 15 targeted: {odd} documents in odd and "
+            f"{len(docs) - odd} in even device slots from "
+            f"{LARGE_SLOT_FROM} (slots {sorted(s for _d, s, _t in docs)}) "
+            f"found by their terms with the oracle's scores; "
+            f"{rounded} of {len(answers)} answers name a document whose "
+            "device slot f32 rounds onto another")
+
+        # A removal past 2**24: the document leaves its term's answer.
+        gone, slot, t = next(x for x in docs if x[1] % 2)
+        before = [d for d, _ in found[docs.index((gone, slot, t))].results]
+        idx.remove(gone)
+        after = idx.search_many([terms[docs.index((gone, slot, t))]], deep)
+        if [d for d, _ in after[0].results] != [d for d in before
+                                                  if d != gone]:
+            raise AssertionError(f"phase 15: removing doc {gone} (device "
+                                 f"slot {slot}): {after[0].results}")
+        peak = (torch.cuda.max_memory_allocated() - mem0) if on_card else 0
+        log(f"phase 15 removal: doc {gone} (device slot {slot}) left its "
+            f"term's answer; peak device memory of the phase {peak} B "
+            f"({card})")
+        out.update(ingest_s=ingest_s, snapshot_s=snap_s,
+                   n_slots=dev.n_slots, n_postings=dev.n_postings,
+                   bytes=sizes, snapshot_mem=snap_mem, peak_mem=peak,
+                   targeted_odd=odd, targeted=len(docs), f32_rounded=rounded,
+                   answers=len(answers), launches=totals)
+        return out
+    finally:
+        search_mod._submit_plans = submit
+        nxs.close()
+        shutil.rmtree(ldir)
+        if on_card:
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2216,6 +2589,9 @@ def main() -> int:
                                              "mixed_qps": mixed["qps"]})
         finally:
             nxs.close()
+    # Phase 3's index is closed: phase 15 has the card and the host.
+    large = run_phase("phase 15 (large snapshot)", card, large_phase, sp,
+                      card)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     log(json.dumps({
@@ -2227,7 +2603,7 @@ def main() -> int:
         "myers_step_instructions": step_ops, "ptxas": ptxas,
         "blockdense": {k: bd[k] for k in ("qps", "stats", "launches")},
         "fallback": fb, "parallel_ingest": par, "service": svc,
-        "entry_points": ep, "mesh": mesh, "card": card,
+        "entry_points": ep, "mesh": mesh, "large": large, "card": card,
         "snapshot_s": snapshot_s, "ingest_s": ingest_s, "docs": N_DOCS}))
 
     # No single PyTorch call computes Levenshtein distances or the
@@ -2242,8 +2618,9 @@ def main() -> int:
         ("myers_distances_one", "myers.cu", "nxs_myers_distances_one",
          "fuzzy.py:40", one["launches"], kern["one"])]
     # Beside the keys every kernel has: its launches in phase 14's mesh
-    # drives, the single-query kernel's launch floor and cold-L2 time,
-    # the transposed kernel's time at M = 1.
+    # drives and in phase 15's (the large snapshot), the single-query
+    # kernel's launch floor and cold-L2 time, the transposed kernel's
+    # time at M = 1.
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
@@ -2251,6 +2628,7 @@ def main() -> int:
         "replaces": f"nxsearch_tpu/ops/pallas/{tpu}", "launches": n,
         **{k: m[k] for k in keys}, "library_ms": None,
         "mesh_launches": mesh["launches"][sym],
+        "large_launches": large["launches"][sym],
         **{k: v for k, v in m.items() if k not in keys}}
         for name, src, sym, tpu, n, m in rows]}))
     print(card)

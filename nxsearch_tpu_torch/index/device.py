@@ -16,7 +16,12 @@ device tensors:
 The blockdense, candidate and dense executors also read the pack's
 slot and ltf columns (``postings_slot`` / ``postings_ltf``, derived on
 first use); blockdense reads a per-term LRU cache of 1024-slot block
-bounds too (``bounds_crows``).
+bounds too (``bounds_crows``).  From 2**24 slots, where f32 rounds odd
+slots onto their neighbours, the slot column is the exact int32 one
+uploaded at the rebuild and kept resident (4 B a posting); the routes
+that read slots from the pack itself (impact-prefix, sliced,
+blockdense) are gated below 2**24 by the planner, so such a snapshot
+is served by the candidate and dense executors, exactly.
 
 Impact prefixes (``PREFIX_CAP`` > 0, built at every rebuild): each
 "wide" term (base df above max(PREFIX_CAP, WIDE_MIN_DF)) gets its top
@@ -58,8 +63,7 @@ def _bucket(n: int, minimum: int) -> int:
 
 
 # Padded array growth: powers of two up to this size, then 1 MiB-element
-# granularity (slot counts must stay well below 2**24; see the
-# reference's _POW2_LIMIT note).
+# granularity (the reference's _POW2_LIMIT).
 _POW2_LIMIT = 1 << 22
 
 
@@ -182,9 +186,11 @@ class DeviceIndex:
         self.postings_pack = None
         # Slot / ltf columns of the pack for the blockdense, candidate
         # and dense executors, derived on first use (postings_slot /
-        # postings_ltf).
+        # postings_ltf); from 2**24 slots the exact int32 slot column
+        # of the rebuild instead, never dropped (it cannot be derived).
         self._slot_dev = None
         self._ltf_dev = None
+        self._slot_exact = None
         self.doc_len = None
         self.alive_mask = None
         self._alive_all = True
@@ -233,9 +239,11 @@ class DeviceIndex:
 
     @property
     def postings_slot(self) -> torch.Tensor:
-        """int32[P_pad] slot column, derived from the pack on first use
-        (slots ride in the pack as f32, exact below 2**24, which the
-        routers gate on)."""
+        """int32[P_pad] slot column: below 2**24 slots derived from the
+        pack on first use (slots ride in the pack as f32, exact there);
+        from 2**24 the exact column uploaded at the rebuild."""
+        if self._slot_exact is not None:
+            return self._slot_exact
         if self._slot_dev is None and self.postings_pack is not None:
             self._slot_dev = self.postings_pack[: self.n_postings, 0].to(
                 torch.int32).contiguous()
@@ -253,9 +261,10 @@ class DeviceIndex:
         """Release the derived slot / ltf columns of a large snapshot
         (above 2**26 postings) after a batch used them: the next
         blockdense batch derives them again, so the second postings
-        copy beside the pack is transient.  Queued work keeps its
-        memory: the caching allocator reuses it only for work ordered
-        after it on the stream.
+        copy beside the pack is transient.  The exact slot column of a
+        snapshot of 2**24 slots or more stays: the pack cannot give it
+        back.  Queued work keeps its memory: the caching allocator
+        reuses it only for work ordered after it on the stream.
 
         Request threads call this under the index's shared read lock,
         so one thread may drop the columns while another still uses
@@ -270,7 +279,8 @@ class DeviceIndex:
             self._ltf_dev = None
 
     def _reset_derived(self) -> None:
-        """Drop what derives from the base CSR (on every rebuild)."""
+        """Drop what derives from the base CSR (on every rebuild; the
+        rebuild sets the exact slot column after this)."""
         self._slot_dev = None
         self._ltf_dev = None
         self._bounds_cache = None
@@ -506,6 +516,10 @@ class DeviceIndex:
         rows = n_round
         pack = torch.zeros((rows, 3), dtype=torch.float32, device=dev)
         dlen_dev = self._put(dlen)
+        # From 2**24 slots the pack's f32 slots round odd slots onto
+        # their neighbours: the exact int32 column of the upload stays.
+        slot_exact = (torch.zeros(p_pad, dtype=torch.int32, device=dev)
+                      if s_pad >= (1 << 24) else None)
         sent_hi = min(rows, upload_hi)
         for off in range(0, sent_hi, _PACK_CHUNK):
             hi = min(off + _PACK_CHUNK, sent_hi)
@@ -528,16 +542,20 @@ class DeviceIndex:
             pack[off:hi, 1] = ltf
             pack[off:hi, 2] = dlen_dev[torch.clamp(
                 slot_d, max=s_pad - 1).to(torch.int64)]
+            if slot_exact is not None and off < p_pad:
+                slot_exact[off: min(hi, p_pad)] = slot_d[: p_pad - off]
         _log.debug("rebuild: pack build %.1fs", time.monotonic() - t_phase)
 
+        # The region's rows carry f32 slots; only impact-prefix plans
+        # read them, and search._prefix_mode gates those below 2**24.
         self._build_prefix(pack, wide, term_starts, counts, cap=cap,
                            p_pad=p_pad, adl_build=float(
                                (token_count // doc_count) if doc_count
                                else 1.0))
 
         # Dense rows for the heaviest terms (device-slot indexed),
-        # scattered from the pack: each (term, slot) occurs once, so
-        # the scatter-add is an exact copy.
+        # scattered from the pack's ltf by the exact slots: each (term,
+        # slot) occurs once, so the scatter-add is an exact copy.
         heavy = np.nonzero(counts > s_pad // self.DENSE_DF_DIV)[0]
         row_cap = min(self.MAX_DENSE_ROWS,
                       max(int(self.DENSE_ROWS_MAX_BYTES // (4 * s_pad)), 1))
@@ -552,9 +570,9 @@ class DeviceIndex:
                             dtype=torch.float32, device=dev)
         for r, t in enumerate(heavy):
             s, ln = int(term_starts[t]), int(counts[t])
-            seg = pack[s: s + ln]
-            dense.index_add_(0, r * s_pad + seg[:, 0].to(torch.int64),
-                             seg[:, 1])
+            slots = (slot_exact[s: s + ln] if slot_exact is not None
+                     else pack[s: s + ln, 0]).to(torch.int64)
+            dense.index_add_(0, r * s_pad + slots, pack[s: s + ln, 1])
         self.dense_rows = dense.reshape(-1, s_pad)
 
         self.postings_pack = pack
@@ -571,6 +589,7 @@ class DeviceIndex:
         self._slots_mark = self.host.doc_ids.n
         self._removed_since_base = 0
         self._reset_derived()
+        self._slot_exact = slot_exact
         self.generation = generation
         _log.debug("rebuild: total %.1fs (%d dense rows)",
                    time.monotonic() - t_phase, len(heavy))

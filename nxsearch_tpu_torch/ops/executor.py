@@ -29,10 +29,11 @@ document's run with the reference's fixed shifted passes and take the
 top k.  These are plain tensor operations in the reference too (no
 Pallas), so here they are torch ops; the block-dense scores are the
 one hand kernel on these routes.  The candidate and dense executors
-are plain tensor operations as well.  They read the slot column
-derived from the f32 pack, which is exact only below 2**24 slots, so
-the router refuses them on larger snapshots (as it refuses every
-route there).
+are plain tensor operations as well, over int64 slots: they read the
+snapshot's int32 slot column (derived from the f32 pack below 2**24
+slots, the exact uploaded one from 2**24), so they serve snapshots of
+any size, as the reference's router sends them every query from 2**24
+slots.
 
 Exactness rules kept from the reference:
 - ties in every top-k resolve toward the lowest plane index, i.e. the

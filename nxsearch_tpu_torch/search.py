@@ -12,16 +12,22 @@ sub-batch for the batch paths), the sliced path ("sl": single,
 windowed, dense-row hybrid, head merge, masked, masked dense-row
 hybrid), the blockdense path ("bd": the segsum kernel over every
 slot), and the candidate and dense executors (plans keyed by
-``_Plan.batch_key``: masked queries of more than 32 terms).  Every
-route reads slots from the f32 pack, exact only below 2**24 slots, so
-a snapshot of 2**24 slots or more raises NxsError(LIMIT) naming the
-limit (the reference routes it to the candidate and dense executors,
-whose slot column is rounded there).  On a doc-sharded index
-(parallel.ShardedDeviceIndex, ``hasattr(dev, "mesh")``) the same
-planner plans per shard and ``_dispatch_mesh`` runs each group's shard
-body ("spf": R = 0 impact-prefix, "ssl": sliced, ``batch_key``:
-blockdense / dense / candidate); the merged int32 global slots ride
-the batch's f32 fetch bit for bit (``unpack_mesh``).
+``_Plan.batch_key``: masked queries of more than 32 terms).  The
+prefix, sliced and blockdense routes read slots from the f32 pack,
+exact only below 2**24 slots, and the planner gates them there; a
+snapshot of 2**24 slots or more takes the candidate and dense
+executors, as in the reference, which read the snapshot's exact int32
+slot column (the reference's column is rounded there).  On a
+doc-sharded index (parallel.ShardedDeviceIndex, ``hasattr(dev,
+"mesh")``) the same planner plans per shard and ``_dispatch_mesh``
+runs each group's shard body ("spf": R = 0 impact-prefix, "ssl":
+sliced, ``batch_key``: blockdense / dense / candidate).  The
+candidate / dense and mesh results carry their int32 slots in the
+batch's f32 fetch bit for bit (``_pack_bits`` / ``unpack_bits``).
+
+NXS_PROFILE_GROUPS=1 logs each dispatch group's device time in
+dispatch order on the trace logger (CUDA events recorded after each
+group's launch; host time on the CPU, where launches run in place).
 
 Device work is asynchronous on CUDA: a batch's groups are enqueued
 back to back, their packed results are concatenated on the device and
@@ -1425,16 +1431,10 @@ def _plain_inputs(dev, plans: list, n_pad: int) -> tuple:
 def _dispatch_plain(dev, plans: list, sp: SearchParams, k: int,
                     n_pad: int):
     """Dispatch one candidate or dense group (plans of one
-    ``batch_key``); returns the packed device result f32[n_pad, 2, k']
-    in the sliced layout.  Refused from 2**24 slots: the slot column
-    these executors read is derived from the f32 pack, where odd slots
-    past 2**24 round onto their neighbours."""
+    ``batch_key``); returns the packed device result f32[n_pad, 2, k']:
+    scores, and the int32 slots bit for bit (``unpack_bits``), exact
+    at any slot count."""
     from .ops.executor import device_search_batch, device_search_dense_batch
-    if dev.n_slots >= (1 << 24):
-        raise NxsError(ErrorCode.LIMIT, (
-            f"index of {dev.n_slots} device slots: the port serves "
-            f"snapshots below 2**24 slots only (slots ride in an f32 "
-            f"column)"))
     sample = plans[0]
     kw = dict(budget=sample.budget, k=k, algo=sp.algo,
               use_mask=sample.use_mask, depth=sample.depth)
@@ -1447,8 +1447,7 @@ def _dispatch_plain(dev, plans: list, sp: SearchParams, k: int,
     scores, slots = fn(*_plain_inputs(dev, plans, n_pad), **kw)
     # Non-matches may carry the padding sentinel; zero them, as the
     # sliced result does.
-    return torch.stack([scores, torch.where(scores > 0.0, slots, 0)
-                        .to(torch.float32)], dim=1)
+    return _pack_bits(scores, torch.where(scores > 0.0, slots, 0))
 
 
 def _dispatch_sliced_single(dev, plan: _Plan, sp: SearchParams, k: int):
@@ -1540,8 +1539,8 @@ def _dispatch_mesh(dev, key: tuple, plans: list, sp: SearchParams, k: int,
     "spf" (R = 0 impact-prefix), "ssl" (sliced) or a ``batch_key``
     group (the blockdense, dense or candidate body), rows padded to
     ``n_pad``; counts its rows.  Returns f32[n_pad, 2, k']: scores, and
-    the int32 global slots bit for bit (``.view(torch.float32)``, read
-    back by ``unpack_mesh``) -- global slots may pass 2**24."""
+    the int32 global slots bit for bit (``_pack_bits``) -- global slots
+    may pass 2**24."""
     from .parallel import sharded as mesh_exec
     n, n_dev = len(plans), dev.n_dev
     sample = plans[0]
@@ -1565,7 +1564,7 @@ def _dispatch_mesh(dev, key: tuple, plans: list, sp: SearchParams, k: int,
         _count("prefix", n)
         _count("prefix_exact", n)
         _count("sharded_prefix", n)
-        return _pack_mesh(scores, slots)
+        return _pack_bits(scores, slots)
     prog_len = len(sample.prog_ops)
     prog_ops = np.zeros((n_pad, prog_len), dtype=np.int32)
     prog_args = np.zeros((n_pad, prog_len), dtype=np.int32)
@@ -1609,7 +1608,7 @@ def _dispatch_mesh(dev, key: tuple, plans: list, sp: SearchParams, k: int,
             alive_all=dev.alive_all, depth=sample.depth,
             n_run=sample.n_run, T_head=t_head, use_rows=use_rows, **h_kw)
         _count("sharded_sliced", n)
-        return _pack_mesh(scores, slots)
+        return _pack_bits(scores, slots)
     for row, p in enumerate(plans):
         q_start[:, row] = p.q_start
         q_len[:, row] = p.q_len
@@ -1624,18 +1623,20 @@ def _dispatch_mesh(dev, key: tuple, plans: list, sp: SearchParams, k: int,
         use_kernel=_sharded_kernel(sample, dev),
         use_dense=sample.use_dense)
     _count("sharded_fallback", n)
-    return _pack_mesh(scores, slots)
+    return _pack_bits(scores, slots)
 
 
-def _pack_mesh(scores, slots):
-    """Mesh scores f32[N, k] and int32 global slots -> one f32[N, 2, k]
-    result in the sliced layout, slots carried bit for bit."""
+def _pack_bits(scores, slots):
+    """Scores f32[N, k] and int32 slots -> one f32[N, 2, k] result in
+    the sliced layout, slots carried bit for bit (f32 by value is
+    exact only below 2**24)."""
     return torch.stack([scores, slots.view(torch.float32)], dim=1)
 
 
-def unpack_mesh(arr: np.ndarray):
-    """A fetched mesh result f32[N, 2, k] -> (scores f32[N, k], global
-    slots int32[N, k]), the slots' bits reinterpreted, not converted."""
+def unpack_bits(arr: np.ndarray):
+    """A fetched ``_pack_bits`` result f32[N, 2, k] -> (scores f32[N,
+    k], slots int32[N, k]), the slots' bits reinterpreted, not
+    converted."""
     return arr[:, 0, :], arr[:, 1, :].view(np.int32)
 
 
@@ -1652,7 +1653,7 @@ def execute_query(dev, query: Query, sp: SearchParams,
     sharded = hasattr(dev, "mesh")
     if sharded:
         key = _group_key(plan, dev)
-        scores, slots = unpack_mesh(
+        scores, slots = unpack_bits(
             _dispatch_mesh(dev, key, [plan], sp, k, 1).cpu().numpy())
         return _to_response(dev, scores[0], slots[0], sp.limit,
                             delta=_delta_results(dev, plan, sp))
@@ -1702,7 +1703,7 @@ def execute_query(dev, query: Query, sp: SearchParams,
                             delta=_delta_results(dev, plan, sp))
     packed = _dispatch_plain(dev, [plan], sp, k, 1)
     dev.drop_legacy_cols()
-    scores, slots = unpack_sliced(packed.cpu().numpy())
+    scores, slots = unpack_bits(packed.cpu().numpy())
     _count("dense" if plan.use_dense else "candidate")
     return _to_response(dev, scores[0], slots[0], sp.limit,
                         delta=_delta_results(dev, plan, sp))
@@ -1722,6 +1723,9 @@ class _PendingBatch:
     # The prepared queries: uncertified prefix rows re-plan classically
     # from them at collect time.
     queries: list = None
+    # NXS_PROFILE_GROUPS: (key, rows) per group and the marks around
+    # their launches (_group_mark), one more mark than groups.
+    profile: tuple = None
 
 
 def execute_query_batch(dev, queries: list[Query],
@@ -1979,8 +1983,11 @@ def _submit_plans(dev, plans: list, queries: list[Query],
     t_dispatch = time.perf_counter()
     pending = []
     sharded = hasattr(dev, "mesh")
+    marks = [] if os.environ.get("NXS_PROFILE_GROUPS") else None
     for key, members in chunked:
         n = len(members)
+        if marks is not None:         # after the previous group's launch
+            marks.append(_group_mark(dev))
         if sharded:                      # "spf", "ssl" or batch_key
             packed = _dispatch_mesh(
                 dev, key, [plans[i] for i in members], sp, k,
@@ -2024,8 +2031,14 @@ def _submit_plans(dev, plans: list, queries: list[Query],
             pending.append((members, packed, "bd"))
             continue
         if not isinstance(key[0], str):
-            packed = _dispatch_plain(dev, [plans[i] for i in members], sp,
-                                     k, _row_pad(n))
+            # Rows pad on the grid but never past the group's row cap,
+            # which bounds its [rows, budget] candidate planes and its
+            # [rows, S_pad] dense plane (the cap falls below the grid's
+            # floor of 8 rows for dense groups past 2**23 slots and for
+            # candidate budgets of 2**24).
+            packed = _dispatch_plain(
+                dev, [plans[i] for i in members], sp, k,
+                min(_row_pad(n), _group_rows_cap(dev, key)))
             _count("dense" if key[3] else "candidate", n)
             pending.append((members, packed, "plain"))
             continue
@@ -2108,6 +2121,8 @@ def _submit_plans(dev, plans: list, queries: list[Query],
         _count_sliced(n, t_head, use_mask_g, use_rows_g)
         pending.append((members, packed, "sliced"))
 
+    if marks is not None:
+        marks.append(_group_mark(dev))
     if any(tag in ("bd", "plain") for _m, _p, tag in pending):
         # A blockdense, candidate or dense group read the derived slot /
         # ltf columns.
@@ -2116,7 +2131,35 @@ def _submit_plans(dev, plans: list, queries: list[Query],
     return _PendingBatch(plans=plans, responses=responses,
                          pending=pending, fetch=fetch,
                          t_dispatch=t_dispatch,
-                         t_submitted=time.perf_counter(), queries=queries)
+                         t_submitted=time.perf_counter(), queries=queries,
+                         profile=None if marks is None else (
+                             [(key, len(m)) for key, m in chunked], marks))
+
+
+def _group_mark(dev):
+    """A point in the device's work: a CUDA event recorded on the
+    device's stream, or the host clock where launches run in place."""
+    if dev.device.type != "cuda":
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(dev.device))
+    return ev
+
+
+def _log_group_times(profile: tuple) -> None:
+    """NXS_PROFILE_GROUPS: one trace line per dispatch group, in
+    dispatch order, with the device time between the marks around its
+    launch (the stream runs groups in launch order)."""
+    groups, marks = profile
+    log = _trace_logger()
+    for (key, n), a, b in zip(groups, marks, marks[1:]):
+        if isinstance(a, float):
+            ms = (b - a) * 1e3
+        else:
+            b.synchronize()
+            ms = a.elapsed_time(b)
+        log.info("group %s n=%d device %.2f ms (%.0f us/q)", key, n, ms,
+                 ms * 1e3 / max(n, 1))
 
 
 def _fetch_start(results: list) -> tuple:
@@ -2163,6 +2206,8 @@ def collect_query_batch(dev, st: _PendingBatch, sp: SearchParams,
     submits that sub-batch before the next batch's groups)."""
     from .ops.executor import unpack_prefix, unpack_sliced
 
+    if st.profile is not None:
+        _log_group_times(st.profile)
     t_fetch = time.perf_counter()
     arrays = _fetch_finish(st.fetch) if st.fetch is not None else []
     t_resp = time.perf_counter()
@@ -2178,8 +2223,8 @@ def collect_query_batch(dev, st: _PendingBatch, sp: SearchParams,
                 fallback_ix.extend(members[r] for r in np.nonzero(~ok)[0])
                 members = [i for r, i in enumerate(members) if ok[r]]
                 scores, slots = scores[ok], slots[ok]
-        elif tag == "mesh":
-            scores, slots = unpack_mesh(arr[:n])
+        elif tag in ("mesh", "plain"):
+            scores, slots = unpack_bits(arr[:n])
         else:
             # Every other route shares the sliced [N, 2, k] layout.
             scores, slots = unpack_sliced(arr)

@@ -269,3 +269,48 @@ def test_mesh_phase_rehearsal(tmp_path, monkeypatch):
     assert out["bd_segsum_launches"] >= 4 and out["bd_max_abs_err"] == 0.0
     assert out["launches"]["nxs_myers_distances_one"] > 0
     assert out["shard_bytes"] and len(out["dense_rows"]) == 4
+
+
+def test_large_phase_rehearsal(monkeypatch):
+    """Phase 15 on a small CPU index: the prefix, sliced and blockdense
+    routers off (as phase 10(b) turns them off; from 2**24 slots the
+    planner does), every drive on the candidate and dense executors,
+    the oracles, the targeted documents from a small slot threshold in
+    odd and even slots, and the removal.  The kernels' plain twins
+    bump their launch counts."""
+    from nxsearch_tpu_torch import Params
+    from nxsearch_tpu_torch import search as psearch
+    from nxsearch_tpu_torch.ops import kernels
+
+    for name, value in {"N_LARGE": 4000, "VOCAB": 6000,
+                        "LARGE_CHUNK": 1500, "LARGE_GEN_WORKERS": 1,
+                        "LARGE_SLOT_FROM": 2000, "N_LARGE_QUERIES": 256,
+                        "BATCH": 64, "N_LARGE_FUZZY": 32, "N_LARGE_MIXED": 96,
+                        "N_LARGE_SINGLE": 8, "N_LARGE_DENSE": 2,
+                        "N_LARGE_ORACLE": 8, "N_LARGE_FUZZY_ORACLE": 4,
+                        "N_LARGE_BOOL_ORACLE": 4, "N_ODD": 4, "N_EVEN": 2,
+                        "LARGE_DF_MAX": 20}.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    for twin, kernel in (("myers_distances_ref", kernels.MYERS),
+                         ("myers_distances_one_ref", kernels.MYERS_ONE)):
+        def counted(*a, _fn=getattr(kernels, twin), _k=kernel, **kw):
+            _k.launches += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(kernels, twin, counted)
+    for name in ("_prefix_mode", "_use_sliced", "_use_blockdense"):
+        monkeypatch.setattr(psearch, name, lambda *a, **kw: False)
+    # Small tensors: one intra-op thread, as in the mesh rehearsal.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = chip_smoke.large_phase(Params().set_uint("limit", 10),
+                                     "a card, 700 W", "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert out["n_slots"] >= 2000 and out["targeted"] == 6
+    assert out["targeted_odd"] == 4 and out["f32_rounded"] == 0
+    assert out["fuzzy"]["launches"]["nxs_myers_distances"] > 0
+    assert out["single"]["launches"]["nxs_myers_distances_one"] > 0
+    assert out["dense"]["stats"]["dense"] == 2
+    assert out["plain"]["stats"]["candidate"] == 256
+    assert psearch._submit_plans.__name__ == "_submit_plans"   # restored

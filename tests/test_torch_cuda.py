@@ -681,3 +681,50 @@ def test_mesh_kernel_body_matches_candidate_on_card(tmp_path):
             *(t[0].cpu().numpy() for t in got)) if v > 0} == \
             pytest.approx(live, abs=1e-4), text
     nxs.close()
+
+
+def test_large_snapshot_on_card_matches_cpu(tmp_path):
+    """A snapshot of 17,825,792 device slots on the card
+    (``large_slots_corpus``: documents in odd and even device slots
+    past 2**24): every answer of search_many, search_pipelined and
+    search, BM25 and TF-IDF, the dense executor's query included,
+    equals the port's on the CPU over the same basedir, and every row
+    takes the candidate or dense executor."""
+    _need_card()
+    import large_slots_corpus as corpus
+    from nxsearch_tpu_torch import Nxs, Params
+    from nxsearch_tpu_torch import search as psearch
+
+    cpu = Nxs(str(tmp_path), device="cpu")
+    idx_c = cpu.index_create("big")
+    corpus.add_corpus(idx_c.host)
+    gpu = Nxs(str(tmp_path), device="cuda")
+    idx_g = gpu.index_open("big")
+    queries = corpus.QUERIES + [corpus.WIDE]
+    half = len(queries) // 2
+    try:
+        for algo in ("BM25", "TF-IDF"):
+            sp = Params().set_uint("limit", 30).set_str("algo", algo)
+            want = idx_c.search_many(queries, sp)
+            psearch.EXEC_STATS.clear()
+            runs = [idx_g.search_many(queries, sp),
+                    [r for b in idx_g.search_pipelined(
+                        [queries[:half], queries[half:]], sp) for r in b],
+                    [idx_g.search(q, sp) for q in queries]]
+            stats = psearch.EXEC_STATS
+            assert not any(stats.get(k, 0) for k in
+                           ("prefix", "sliced", "blockdense")), stats
+            assert stats["candidate"] + stats["dense"] == 3 * len(queries)
+            for got in runs:
+                for q, w, g in zip(queries, want, got):
+                    assert [d for d, _ in g.results] == \
+                        [d for d, _ in w.results], (algo, q)
+                    np.testing.assert_allclose(
+                        [s for _, s in g.results], [s for _, s in w.results],
+                        rtol=0, atol=1e-4, err_msg=q)
+        dev = idx_g.dev
+        assert dev.n_slots == 17_825_792 and dev.postings_slot.is_cuda
+        assert dev.postings_slot is dev._slot_exact
+    finally:
+        gpu.close()
+        cpu.close()

@@ -20,13 +20,13 @@ reference's; as it stands the port sends the bd-eligible plans to the
 blockdense executor instead, and the > 32-term masked rows to dense.
 """
 
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
 import bench
+import large_slots_corpus
 import nxsearch_tpu
 import nxsearch_tpu.search as jsearch
 import nxsearch_tpu_torch
@@ -297,18 +297,23 @@ def test_dense_matches_reference(algo, use_mask, n_terms, dead):
 
 
 def test_plain_routes_refused_from_2_24_slots():
-    """The slot column is derived from the f32 pack, where odd slots
-    past 2**24 round onto their neighbours: the candidate / dense
-    dispatch raises there instead of answering for the wrong documents
-    (the reference's router sends such snapshots to these executors)."""
-    dev = SimpleNamespace(n_slots=1 << 24)
-    with pytest.raises(nxsearch_tpu_torch.NxsError) as err:
-        psearch._dispatch_plain(dev, [None], None, K, 1)
-    assert err.value.code == nxsearch_tpu_torch.ErrorCode.LIMIT
-    assert "2**24" in err.value.msg
-    # The reference's fault: f32 rounds an odd slot past 2**24 down.
-    slot = (1 << 24) + 1
-    assert int(np.float32(slot)) == slot - 1
+    """The candidate / dense dispatch, which refused snapshots of 2**24
+    slots or more until they read an exact int32 slot column, answers
+    there now: its packed result carries odd slots past 2**24 (which f32
+    by value rounds onto their neighbours) bit for bit through the
+    batch fetch, on both executors."""
+    slots = [7, (1 << 24) + 1, (1 << 24) + 3]
+    assert int(np.float32(slots[1])) != slots[1]     # what f32 would do
+    dev = large_slots_corpus.plain_dev(slots)
+    sp = psearch.SearchParams(limit=10, algo=0, fuzzymatch=False)
+    for use_dense in (False, True):
+        plans = [large_slots_corpus.plain_plan(t, use_dense)
+                 for t in range(3)]
+        packed = psearch._dispatch_plain(dev, plans, sp, K, 3)
+        arr, = psearch._fetch_finish(psearch._fetch_start([packed]))
+        scores, got = psearch.unpack_bits(arr)
+        assert got[:, 0].tolist() == slots, use_dense
+        assert (scores[:, 0] > 0).all() and (scores[:, 1:] == 0).all()
 
 
 # -- search level --------------------------------------------------------

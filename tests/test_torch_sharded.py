@@ -699,8 +699,8 @@ def test_merge_carries_global_slots_past_2_24():
         np.testing.assert_array_equal(m_sl[r].numpy(), flat_sl[r][order])
     assert int(m_sl.max()) > (1 << 24) + 1
     fetched = psearch._fetch_finish(psearch._fetch_start(
-        [psearch._pack_mesh(m_s, m_sl)]))[0]
-    got_s, got_sl = psearch.unpack_mesh(fetched)
+        [psearch._pack_bits(m_s, m_sl)]))[0]
+    got_s, got_sl = psearch.unpack_bits(fetched)
     np.testing.assert_array_equal(got_s, m_s.numpy())
     np.testing.assert_array_equal(got_sl, m_sl.numpy())
 
