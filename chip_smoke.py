@@ -6,12 +6,13 @@ resolution by the forward, transposed (NXS_FUZZY_REV=1) and
 single-query Myers kernels, boolean (AND / NOT) search on the masked
 sliced route and on the blockdense route, and the fallback routes
 (the dense and candidate executors, impact-prefix plans with wide
-terms) -- at the benchmark's 1M-document tier, and a snapshot of
-17,825,792 device slots (phase 15), through the entry points a user
-calls (Nxs, Index.add_many, search, search_pipelined,
-search_many, parallel_ingest, the REST service in process and as
-``python -m``, the benchmark CLI), and checks every hand-written
-kernel of those paths against its plain PyTorch twin.  Phases (any failure exits non-zero and prints no result):
+terms) -- at the benchmark's 1M-document tier, a snapshot of
+17,825,792 device slots (phase 15) and the north-star tier's shapes
+(phase 16), through the entry points a user calls (Nxs,
+Index.add_many, search, search_pipelined, search_many,
+parallel_ingest, the REST service in process and as ``python -m``, the
+benchmark CLI, bench_torch.py), and checks every hand-written kernel
+of those paths against its plain PyTorch twin.  Phases (any failure exits non-zero and prints no result):
 
 1. card check and kernel build: needs torch.cuda; prints the card's
    name and power limit; builds csrc/*.cu with nvcc (first use), one
@@ -160,15 +161,39 @@ kernel of those paths against its plain PyTorch twin.  Phases (any failure exits
    the 8 dense answers; 16 documents in odd and 4 in even device slots
    from 2**24 up, each found by a term of df <= 1000 with the oracle's
    scores; the answers that f32 slots would have sent to another
-   document counted; one of those documents removed and gone from its
-   term's answer.
+   document counted; the index on a mesh of one card (a shard of
+   17,825,792 slots): 16 documents in odd and 4 in even global slots
+   from 2**24 up and the 8 dense queries through the mesh's candidate
+   and dense bodies, with the oracle's answers under the mesh's tie
+   rule (lowest host slot); one of the targeted documents removed and
+   gone from its term's answer;
+16. north-star phase: bench.py's north-star tier (vocab 1,000,000, mean
+   length 60, zipf_range seed 42) cut to 1,048,576 of its 8,800,000
+   documents for the script's time (the cut is logged), the dense-row
+   byte budget lowered so that it holds the 35 rows it holds at the
+   full tier (logged); bench_torch.py's traffic -- 8192 make_queries
+   through search_pipelined, 8192 make_mixed_queries, 512 typo queries
+   through search_many -- then 64 Index.search calls (half typos), the
+   typos on the transposed kernel, 512 dense-row-term queries on the
+   blockdense route and 8 > 32-term queries on the dense executor,
+   each drive with the counts from zero and its routes and launches
+   asserted; the numpy oracles on 64 plain, 16 fuzzy, 32 boolean and
+   the dense answers, the transposed and blockdense answers equal to
+   the forward and default routes'; the widest dispatch group per route
+   (qs, T, terms, budget) logged; the four kernels at the phase's
+   shapes (Myers over every term of the tier, segsum at one blockdense
+   launch's rows) against their twins and timed, with their bounds;
+   the snapshot's seconds, bytes and dense rows, peak device memory and
+   host RSS; then bench_torch.py as a subprocess on a small fresh tier
+   (its JSON line checked).
 
 Each phase logs its seconds and numbers beside the card's name and
 power limit, and the device memory it allocates.
 
 The next-to-last lines are the kernel table (JSON: per kernel its
-launches on its path, on the mesh's and on the large snapshot's,
-exactness, kernel / plain times, and its bound:
+launches on its path, on the mesh's, on the large snapshot's and on
+the north-star tier's, exactness, kernel / plain times, and its bound,
+also at the north-star phase's shapes:
 the larger of the bytes it must move over the card's memory rate and
 its operations over the card's peak rate for their type) and the card
 line; the last line is {"ok": true, "device": {...}}.
@@ -186,6 +211,8 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+from bench_torch import card_line  # noqa: E402  (the card's name, power)
 
 N_DOCS = 1_000_000        # bench.py's 1M tier, not cut
 VOCAB = 200_000
@@ -234,6 +261,19 @@ N_LARGE_FUZZY_ORACLE = 16
 N_LARGE_BOOL_ORACLE = 32
 N_ODD, N_EVEN = 16, 4   # targeted documents past LARGE_SLOT_FROM
 LARGE_DF_MAX = 1000     # their query term's df at most this
+N_NORTH = 1_048_576     # phase 16: the north-star tier's documents, cut
+NORTH_FULL = 8_800_000  # ... from these to fit the script's time
+NORTH_VOCAB = 1_000_000
+NORTH_MEAN_LEN = 60
+N_NORTH_QUERIES = 8192  # bench_torch.py's pure-OR and mixed traces
+N_NORTH_FUZZY = 512
+N_NORTH_SINGLE = 64     # half of them typos
+N_NORTH_DENSE = 8
+N_NORTH_ORACLE = 64
+N_NORTH_FUZZY_ORACLE = 16
+N_NORTH_BOOL_ORACLE = 32
+# The bench_torch.py subprocess: a small tier, built afresh.
+NORTH_BENCH = ["--docs", "65536", "--queries", "2048", "--batch", "512"]
 TOL = 1e-4               # score tolerance of the reference's own tests
 
 # The card's peak rates for the kernels' bounds: HBM3 bytes per second
@@ -279,14 +319,6 @@ KERNEL_REPS = 10            # kernel calls per timed sample
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def sm_clock_max_mhz() -> float:
@@ -742,14 +774,16 @@ def ingest(workdir: str):
     return nxs, idx, ingest_s
 
 
-def vocab():
-    """bench.py's vocabulary and its Zipf term probabilities."""
+def vocab(n: int = 0):
+    """bench.py's vocabulary of ``n`` (VOCAB) words and its Zipf term
+    probabilities."""
     import numpy as np
 
-    ranks = np.arange(VOCAB, dtype=np.float64)
+    n = n or VOCAB
+    ranks = np.arange(n, dtype=np.float64)
     probs = 1.0 / (ranks + 10.0)
     probs /= probs.sum()
-    return np.array([f"w{i:05d}" for i in range(VOCAB)]), probs
+    return np.array([f"w{i:05d}" for i in range(n)]), probs
 
 
 def workload():
@@ -1156,12 +1190,13 @@ def mixed_phase(idx, sp) -> dict:
             "launches": launches, "queries": queries, "results": results}
 
 
-def bd_queries(idx) -> list[str]:
+def bd_queries(idx, n_vocab: int = 0) -> list[str]:
     """N_BD masked queries, each holding a dense-row term d: ``d AND a``
-    and ``a b AND NOT d`` with a, b from the mixed trace's word mix."""
+    and ``a b AND NOT d`` with a, b from the mixed trace's word mix
+    (bench.py's vocabulary of ``n_vocab`` words, VOCAB by default)."""
     import numpy as np
 
-    words, probs = vocab()
+    words, probs = vocab(n_vocab)
     qp = probs ** 0.35
     qp /= qp.sum()
     values = idx.host.term_values
@@ -1234,10 +1269,11 @@ def bd_phase(idx, sp) -> dict:
             "queries": queries, "results": got}
 
 
-def segsum_phase(idx, queries: list[str]) -> dict:
+def segsum_phase(idx, queries: list[str], n_rows: int = 0) -> dict:
     """The segsum kernel against its plain twin at the blockdense
-    route's shape: the first N_SEGSUM blockdense queries' kernel terms
-    (bounds rows from the snapshot's cache), every slot, BM25."""
+    route's shape: the first ``n_rows`` (N_SEGSUM) blockdense queries'
+    kernel terms (bounds rows from the snapshot's cache), every slot,
+    BM25."""
     import numpy as np
     import torch
 
@@ -1249,7 +1285,7 @@ def segsum_phase(idx, queries: list[str]) -> dict:
     sp = search_mod.get_search_params(idx.algo,
                                       Params().set_uint("limit", 10))
     prepared = search_mod._prepare_many(dev, idx.pipeline,
-                                        queries[:N_SEGSUM], sp)
+                                        queries[: n_rows or N_SEGSUM], sp)
     plans = search_mod._build_plans(dev, prepared, sp)
     if any(p is None or not p.use_mask for p in plans):
         raise AssertionError("segsum phase: every query must plan masked")
@@ -1295,14 +1331,15 @@ def segsum_phase(idx, queries: list[str]) -> dict:
             **b}
 
 
-def dense_queries(idx, n: int = 0) -> list[str]:
+def dense_queries(idx, n: int = 0, n_vocab: int = 0) -> list[str]:
     """``n`` (N_DENSE) masked queries of 33-48 unique words drawn from the
-    damped Zipf vocab's words in the dictionary (seed 47), alternately
-    ``(a OR b OR ...) AND NOT z`` and ``(a OR ...) AND (m OR ...)``.
-    More than 32 terms: the dense executor's packed bitmaps."""
+    damped Zipf vocab's words (``n_vocab``, VOCAB by default) in the
+    dictionary (seed 47), alternately ``(a OR b OR ...) AND NOT z`` and
+    ``(a OR ...) AND (m OR ...)``.  More than 32 terms: the dense
+    executor's packed bitmaps."""
     import numpy as np
 
-    words, probs = vocab()
+    words, probs = vocab(n_vocab)
     known = np.array([idx.host.term_lookup(idx.pipeline.run(str(w)))
                       is not None for w in words])
     words = words[known]
@@ -2203,42 +2240,6 @@ def entry_point_phase(workdir: str, idx, sp, card: str,
             "service_gib": svc_gib, "cli_s": cli_s, "cli_timings": timings}
 
 
-def large_ingest(idx) -> float:
-    """Phase 15's corpus into ``idx``: bench.zipf_range texts made by
-    min(LARGE_GEN_WORKERS, cpus) spawned processes (a bounded window of
-    chunks ahead), indexed in order by Index.add_many in this process;
-    returns the seconds."""
-    import collections
-    import functools
-    import itertools
-    import multiprocessing as mp
-    from concurrent.futures import ProcessPoolExecutor
-
-    import bench
-
-    gen = functools.partial(bench.zipf_range, vocab=VOCAB,
-                            mean_len=LARGE_MEAN_LEN)
-    ranges = iter([(lo, min(lo + LARGE_CHUNK, N_LARGE))
-                   for lo in range(0, N_LARGE, LARGE_CHUNK)])
-    workers = min(LARGE_GEN_WORKERS, os.cpu_count() or 1)
-    t0 = time.perf_counter()
-    if workers <= 1:
-        for lo, hi in ranges:
-            idx.add_many(gen(lo, hi))
-        return time.perf_counter() - t0
-    with ProcessPoolExecutor(workers,
-                             mp_context=mp.get_context("spawn")) as pool:
-        ahead = collections.deque(pool.submit(gen, *r) for r in
-                                  itertools.islice(ranges, 2 * workers))
-        while ahead:
-            docs = ahead.popleft().result()
-            nxt = next(ranges, None)
-            if nxt is not None:
-                ahead.append(pool.submit(gen, *nxt))
-            idx.add_many(docs)
-    return time.perf_counter() - t0
-
-
 def f32_rounded(oracle: HostOracle, responses) -> int:
     """How many answers name a document whose device slot f32 does not
     hold exactly: had the slots ridden in f32 by value, those answers
@@ -2253,20 +2254,23 @@ def f32_rounded(oracle: HostOracle, responses) -> int:
     return n
 
 
-def targeted_docs(idx, rng):
+def targeted_docs(idx, rng, perm=None):
     """N_ODD documents in odd and N_EVEN in even device slots from
     LARGE_SLOT_FROM up, each with a term of df <= LARGE_DF_MAX (one term
-    per document, none twice): [(doc id, device slot, term id)]."""
-    host, dev = idx.host, idx.dev
+    per document, none twice): [(doc id, device slot, term id)].
+    ``perm`` maps a device slot to its host slot (the snapshot's
+    ``slot_perm`` by default; a mesh's global slot is its host slot)."""
+    host = idx.host
+    perm = idx.dev.slot_perm if perm is None else perm
     df = host.term_df.view()
-    n_host = len(dev.slot_perm)
+    n_host = len(perm)
     want = {1: N_ODD, 0: N_EVEN}
     out, used = [], set()
     for s in rng.permutation(n_host - LARGE_SLOT_FROM) + LARGE_SLOT_FROM:
         s = int(s)
         if not want[s % 2]:
             continue
-        h = int(dev.slot_perm[s])
+        h = int(perm[s])
         start, n = int(host.doc_start.a[h]), int(host.doc_n.a[h])
         for t in host.p_term.a[start: start + n].tolist():
             if df[t - 1] <= LARGE_DF_MAX and t not in used:
@@ -2303,13 +2307,15 @@ def large_phase(sp, card: str, device: str = "cuda") -> dict:
     executor's [rows, S_pad] plane).  Checked: the routes, the numpy
     oracles on sampled answers, documents in odd and even device slots
     from 2**24 up found by a term of df <= LARGE_DF_MAX with the
-    oracle's scores, and a removal of one of them."""
+    oracle's scores, the index on a mesh of one device (large_mesh),
+    and a removal of one of the documents."""
     import shutil
 
     import numpy as np
     import torch
 
     import bench
+    import bench_torch
     from nxsearch_tpu_torch import Nxs, Params
     from nxsearch_tpu_torch import search as search_mod
 
@@ -2360,7 +2366,9 @@ def large_phase(sp, card: str, device: str = "cuda") -> dict:
     search_mod._submit_plans = counted
     try:
         idx = nxs.index_create("large")
-        ingest_s = large_ingest(idx)
+        ingest_s = bench_torch.add_zipf(idx, N_LARGE, VOCAB, LARGE_MEAN_LEN,
+                                        workers=LARGE_GEN_WORKERS,
+                                        chunk=LARGE_CHUNK)
         log(f"phase 15 ingest ({card}): {N_LARGE} docs (mean length "
             f"{LARGE_MEAN_LEN}) through add_many in {ingest_s} s, "
             f"{N_LARGE / ingest_s} docs/s; {idx.host.p_term.n} postings")
@@ -2495,6 +2503,8 @@ def large_phase(sp, card: str, device: str = "cuda") -> dict:
             f"{rounded} of {len(answers)} answers name a document whose "
             "device slot f32 rounds onto another")
 
+        out["mesh"] = large_mesh(ldir, idx, oracle, sp, dense, device)
+
         # A removal past 2**24: the document leaves its term's answer.
         gone, slot, t = next(x for x in docs if x[1] % 2)
         before = [d for d, _ in found[docs.index((gone, slot, t))].results]
@@ -2520,6 +2530,465 @@ def large_phase(sp, card: str, device: str = "cuda") -> dict:
         shutil.rmtree(ldir)
         if on_card:
             torch.cuda.empty_cache()
+
+
+def large_mesh(basedir: str, idx, oracle: HostOracle, sp, dense,
+               device: str) -> dict:
+    """Phase 15's index on a mesh of one device (parallel/): a shard of
+    2**24 slots or more, served by the mesh's candidate and dense
+    bodies over its exact int32 shard column.  N_ODD documents in odd
+    and N_EVEN in even global slots from LARGE_SLOT_FROM up (a mesh's
+    global slot is its host slot), each by a term of df <=
+    LARGE_DF_MAX, and the > 32-term queries ``dense``, with the
+    oracle's ids and scores under the mesh's tie rule (lowest host
+    slot)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from nxsearch_tpu_torch import Nxs, Params
+    from nxsearch_tpu_torch import search as search_mod
+    from nxsearch_tpu_torch.parallel import make_mesh
+
+    idx.checkpoint()            # the mesh's handle opens this snapshot
+    n_host = idx.host.doc_ids.n
+    by_host = copy.copy(oracle)
+    by_host.dev_rank = np.arange(n_host)
+    docs = targeted_docs(idx, np.random.default_rng(13),
+                         perm=np.arange(n_host))
+    terms = [idx.host.term_values[t - 1] for _d, _s, t in docs]
+    deep = Params().set_uint("limit", LARGE_DF_MAX)
+    mnxs = Nxs(basedir, mesh=make_mesh([torch.device(device)]))
+    try:
+        midx = mnxs.index_open("large")
+        t0 = time.perf_counter()
+        midx.search("w00001", sp)               # builds the shard
+        build_s = time.perf_counter() - t0
+        mdev = midx.dev
+        if mdev.slots_per_shard < LARGE_SLOT_FROM:
+            raise AssertionError(f"phase 15 mesh: a shard of "
+                                 f"{mdev.slots_per_shard} slots")
+        reset_counts()
+        found = midx.search_many(terms, deep)
+        dn = midx.search_many(dense, sp)
+        stats = dict(search_mod.EXEC_STATS)
+        launches = launch_counts()
+    finally:
+        mnxs.close()
+    rows = len(terms) + len(dense)
+    if stats.get("sharded_fallback", 0) != rows or any(
+            stats.get(k, 0) for k in ("sharded_prefix", "sharded_sliced")):
+        raise AssertionError(f"phase 15 mesh: {rows} rows on the "
+                             f"candidate / dense bodies expected: {stats}")
+    for (doc, slot, t), q, resp in zip(docs, terms, found):
+        if doc not in [d for d, _ in resp.results]:
+            raise AssertionError(f"phase 15 mesh: doc {doc} (global slot "
+                                 f"{slot}) missing from {q!r}")
+        ids_o, sc_o, acc = oracle_top(by_host.csr, by_host.host, [t],
+                                      by_host.dev_rank, LARGE_DF_MAX)
+        check_against_oracle(resp, ids_o, sc_o, acc, by_host.slot_of_id, q)
+    for q, r in zip(dense, dn):
+        by_host.check_boolean(q, r)
+    odd = sum(s % 2 for _d, s, _t in docs)
+    log(f"phase 15 mesh of one device: a shard of {mdev.slots_per_shard} "
+        f"slots built in {build_s} s; {odd} documents in odd and "
+        f"{len(docs) - odd} in even global slots from {LARGE_SLOT_FROM} "
+        f"found by their terms and {len(dense)} > 32-term answers, all "
+        f"with the oracle's ids and scores; routes {stats}")
+    return {"build_s": build_s, "slots_per_shard": mdev.slots_per_shard,
+            "targeted": len(docs), "targeted_odd": odd, "stats": stats,
+            "launches": launches}
+
+
+def north_index(nxs):
+    """Phase 16's corpus: N_NORTH documents of the north-star tier's
+    generator (bench.zipf_range, NORTH_VOCAB words, mean length
+    NORTH_MEAN_LEN, seed 42) through Index.add_many
+    (bench_torch.add_zipf, texts from spawned processes) into a new
+    index "bench" of ``nxs``; returns (index, ingest seconds)."""
+    import bench_torch
+
+    idx = nxs.index_create("bench")
+    return idx, bench_torch.add_zipf(idx, N_NORTH, NORTH_VOCAB,
+                                     NORTH_MEAN_LEN,
+                                     workers=LARGE_GEN_WORKERS,
+                                     chunk=LARGE_CHUNK)
+
+
+def record_groups(widest: dict):
+    """A stand-in for search._group_rows_cap that records, per route,
+    the widest dispatch group (qs and T of impact-prefix and sliced
+    groups, terms and postings budget of the others) and the smallest
+    row cap."""
+    from nxsearch_tpu_torch import search as search_mod
+
+    rows_cap = search_mod._group_rows_cap
+
+    def recorded(dev, key):
+        cap = rows_cap(dev, key)
+        if isinstance(key[0], str):
+            route = key[0]
+            dims = ({"qs": key[1], "T": key[2]} if route in ("pf", "sl")
+                    else {"q": key[1]})
+        else:
+            route = "dense" if key[3] else "candidate"
+            dims = {"q": key[0], "budget": key[4]}
+        w = widest.setdefault(route, {"rows_cap": cap})
+        for k, v in dims.items():
+            w[k] = max(w.get(k, 0), int(v))
+        w["rows_cap"] = min(w["rows_cap"], cap)
+        return cap
+
+    return recorded
+
+
+def north_kernels(idx, step_ops: float, fuzzy: list, bdq: list) -> dict:
+    """The four kernels at the shapes phase 16's path gives them, each
+    held to its plain version (exact) and timed with CUDA events:
+    forward and transposed Myers on KERNEL_M typos of ``fuzzy`` over the
+    matcher's length region (every term of the tier), the single-query
+    kernel on one of them, and segsum on the first blockdense queries
+    of ``bdq``, as many rows as one blockdense launch takes."""
+    from nxsearch_tpu_torch import search as search_mod
+    from nxsearch_tpu_torch.ops import kernels
+
+    fz = idx._fuzzy_matcher()
+    typos = sorted(typos_of(idx, fuzzy))[:KERNEL_M]
+    qb, ql = fz._pack_queries([t.encode() for t in typos])
+    lo, w = fz._region(int(ql.median()))
+    args = (fz._dev_bytes[lo: lo + w], fz._dev_len[lo: lo + w], qb, ql)
+    vb, vl = args[:2]
+    one_args = (vb, vl, qb[:1], ql[:1])
+    checks = {
+        "fwd": (kernels.myers_distances(*args),
+                kernels.myers_distances_ref(*args)),
+        "rev": (kernels.myers_rev_distances(*args),
+                kernels.myers_rev_distances_ref(*args)),
+        "one": (kernels.myers_distances(*one_args)[0],
+                kernels.myers_distances_one_ref(vb, vl, qb[0], ql[0]))}
+    out = {}
+    for name, (got, want) in checks.items():
+        err = int((got.long() - want.long()).abs().max())
+        if not (err == 0 and got.shape == want.shape):
+            raise AssertionError(f"phase 16 {name} kernel at W={w}: max "
+                                 f"|diff| {err}")
+        out[name] = {"max_abs_err": err}
+    if not bool((checks["rev"][0] == checks["fwd"][0]).all()):
+        raise AssertionError("phase 16: transposed and forward kernels "
+                             "disagree")
+    ms = in_turns({"fwd": kernels.myers_distances,
+                   "rev": kernels.myers_rev_distances},
+                  ("fwd", "rev", "rev", "fwd"), args, reps=KERNEL_REPS)
+    ms["one"] = cuda_time_ms(lambda: kernels.myers_distances(*one_args),
+                             21, KERNEL_REPS)
+    plain = {
+        "fwd": cuda_time_ms(lambda: kernels.myers_distances_ref(*args), 3),
+        "rev": cuda_time_ms(lambda: kernels.myers_rev_distances_ref(*args),
+                            3),
+        "one": cuda_time_ms(lambda: kernels.myers_distances_one_ref(
+            vb, vl, qb[0], ql[0]), 5)}
+    int_rate = int32_ops_per_s()
+    bounds = {
+        "fwd": bound(myers_bytes(*args), myers_ops(vl, ql, False, step_ops),
+                     int_rate),
+        "rev": bound(myers_bytes(*args), myers_ops(vl, ql, True, step_ops),
+                     int_rate),
+        "one": bound(myers_bytes(*one_args),
+                     myers_ops(vl, ql[:1], False, step_ops), int_rate)}
+    for name in out:
+        out[name].update(ms=ms[name], plain_ms=plain[name], **bounds[name],
+                         shape={"M": 1 if name == "one" else len(typos),
+                                "W": w})
+    # One blockdense launch's rows (search._group_rows_cap for "bd").
+    n_bd = min(N_SEGSUM, max(1, search_mod._BD_ELEMS_CAP
+                             // idx.dev.n_slots))
+    seg = segsum_phase(idx, bdq, n_rows=n_bd)
+    out["segsum"] = {**seg, "shape": {"N": n_bd, "S": idx.dev.n_slots}}
+    log(f"phase 16 kernels at the tier's shapes: {out}")
+    return out
+
+
+def bench_entry(device: str, card: str) -> dict:
+    """bench_torch.py as a subprocess at a small tier (NORTH_BENCH, a
+    fresh build under .bench_cache/): exit 0 and its JSON line."""
+    cmd = [sys.executable, os.path.join(ROOT, "bench_torch.py"),
+           *NORTH_BENCH, "--no-cache", "--device", device]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          cwd=ROOT)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench_torch.py exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    detail = line["detail"]
+    if (line["metric"] != "bm25_top10_search_qps" or line["value"] <= 0
+            or detail["device"]["type"] != device
+            or (device == "cuda" and detail["device"]["card"] != card)
+            or not detail["exec_stats"]):
+        raise AssertionError(f"bench_torch.py's line: {line}")
+    log(f"phase 16 bench_torch.py {' '.join(NORTH_BENCH)} --no-cache "
+        f"({card}): exit 0 in {seconds} s; {json.dumps(line)}")
+    return {"seconds": seconds, "line": line}
+
+
+def north_phase(sp, card: str, step_ops: float,
+                device: str = "cuda") -> dict:
+    """Phase 16: the north-star tier (bench.py's --docs 8800000 --vocab
+    1000000 --mean-len 60) at N_NORTH documents: the count is cut, to
+    fit the script's time, and nothing else.  At the cut a dense row is
+    smaller, so the dense-row byte budget
+    (DeviceIndex.DENSE_ROWS_MAX_BYTES, NXS_DENSE_ROWS_MB) is lowered to
+    hold as many rows as it holds at the full tier, where it binds.
+
+    Traffic on the one index, each drive with the counts from zero:
+    bench_torch.py's -- N_NORTH_QUERIES make_queries through
+    search_pipelined (after one warm-up pass), as many
+    make_mixed_queries, N_NORTH_FUZZY typo queries through search_many
+    (forward Myers) -- then N_NORTH_SINGLE Index.search calls, half of
+    them typos (single-query Myers), the typo queries again on the
+    transposed kernel (NXS_FUZZY_REV's flag), N_BD queries with
+    dense-row terms on the blockdense route (NXS_MASKED_HYBRID=0's
+    flag; segsum) and N_NORTH_DENSE > 32-term queries (the dense
+    executor).  Checked: the numpy oracles on 64 plain, 16 fuzzy, 32
+    boolean and the dense answers; the transposed and blockdense answers
+    equal the forward and default routes'; the kernels at the tier's
+    shapes against their plain versions (north_kernels); bench_torch.py
+    as a subprocess (bench_entry).  Logged: the snapshot's seconds,
+    bytes and dense rows, peak device memory, host RSS, the widest
+    dispatch groups per route."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+
+    import bench
+    import bench_torch
+    from nxsearch_tpu_torch import Nxs
+    from nxsearch_tpu_torch import fuzzy as fuzzy_mod
+    from nxsearch_tpu_torch import search as search_mod
+    from nxsearch_tpu_torch.index.device import DeviceIndex, _pad_size
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated() if on_card else 0
+    words, probs = vocab(NORTH_VOCAB)
+    s_pad = _pad_size(N_NORTH, DeviceIndex._MIN_SLOTS)
+    budget0 = DeviceIndex.DENSE_ROWS_MAX_BYTES
+    full_rows = min(DeviceIndex.MAX_DENSE_ROWS, budget0 // (4 * _pad_size(
+        NORTH_FULL, DeviceIndex._MIN_SLOTS)))
+    budget = full_rows * 4 * s_pad
+    out = {"docs": N_NORTH, "full_docs": NORTH_FULL, "vocab": NORTH_VOCAB,
+           "mean_len": NORTH_MEAN_LEN,
+           "dense_budget": {"default": budget0, "set": budget,
+                            "rows": full_rows}}
+    log(f"phase 16 ({card}): {N_NORTH} of the north-star tier's "
+        f"{NORTH_FULL} documents (vocab {NORTH_VOCAB}, mean length "
+        f"{NORTH_MEAN_LEN}; cut: the document count, to fit the script's "
+        f"time); dense-row budget set from {budget0} to {budget} B: "
+        f"{full_rows} rows of {s_pad} slots, the rows the full tier's "
+        "budget holds")
+    totals, widest = {}, {}
+
+    def drive(name, fn):
+        """Run ``fn`` with the counts from zero."""
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = fn()
+        sync()
+        dt = time.perf_counter() - t0
+        launches = launch_counts()
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        out[name] = {"seconds": dt,
+                     "stats": dict(sorted(search_mod.EXEC_STATS.items())),
+                     "launches": launches}
+        return got, dt
+
+    ldir = tempfile.mkdtemp(prefix="nxs_north_")
+    nxs = Nxs(ldir, device=device)
+    rows_cap = search_mod._group_rows_cap
+    DeviceIndex.DENSE_ROWS_MAX_BYTES = budget
+    search_mod._group_rows_cap = record_groups(widest)
+    try:
+        # bench.py's generators cost O(vocabulary) a query: the two
+        # traces are made by spawned processes beside the ingest.
+        with ProcessPoolExecutor(
+                2, mp_context=multiprocessing.get_context("spawn")) as pool:
+            traces = [pool.submit(gen, N_NORTH_QUERIES, words, probs,
+                                  np.random.default_rng(seed))
+                      for gen, seed in ((bench.make_queries, 42),
+                                        (bench.make_mixed_queries, 43))]
+            idx, ingest_s = north_index(nxs)
+            queries, mixed = (f.result() for f in traces)
+        log(f"phase 16 ingest ({card}): {idx.host.doc_count} docs in "
+            f"{ingest_s} s; {idx.host.p_term.n} postings, "
+            f"{len(idx.host.term_values)} terms")
+        t0 = time.perf_counter()
+        idx.search("w00001", sp)                 # builds the snapshot
+        sync()
+        snap_s = time.perf_counter() - t0
+        dev = idx.dev
+        counts = np.diff(dev.term_starts)
+        heavy = int(np.count_nonzero(counts > dev.n_slots
+                                     // DeviceIndex.DENSE_DF_DIV))
+        n_rows = len(dev.dense_row_of)
+        if n_rows != min(heavy, full_rows) or dev.postings_pack.device.type \
+                != device:
+            raise AssertionError(f"phase 16: {n_rows} dense rows for "
+                                 f"{heavy} heavy terms, budget of "
+                                 f"{full_rows}")
+        sizes = bench_torch.snapshot_bytes(dev)
+        snap_mem = (torch.cuda.memory_allocated() - mem0) if on_card else 0
+        log(f"phase 16 snapshot ({card}): {snap_s} s; {dev.n_slots} device "
+            f"slots, {dev.n_postings} padded postings; {heavy} terms above "
+            f"the dense-row df threshold, {n_rows} with dense rows, "
+            f"{heavy - n_rows} served without one; impact prefixes "
+            f"{dev.prefix_stats}; bytes {sizes}; {snap_mem} B allocated")
+        t0 = time.perf_counter()
+        oracle = HostOracle(idx)
+        oracle_s = time.perf_counter() - t0
+
+        batches = [queries[i: i + BATCH]
+                   for i in range(0, N_NORTH_QUERIES, BATCH)]
+        mbatches = [mixed[i: i + BATCH]
+                    for i in range(0, N_NORTH_QUERIES, BATCH)]
+        fuzzy = bench.make_fuzzy_queries(N_NORTH_FUZZY, words, probs,
+                                         np.random.default_rng(45), "x")
+        single = (bench.make_fuzzy_queries(
+            N_NORTH_SINGLE // 2, words, probs, np.random.default_rng(46),
+            "h") + queries[: N_NORTH_SINGLE // 2])
+        bdq = bd_queries(idx, NORTH_VOCAB)
+        dense = dense_queries(idx, N_NORTH_DENSE, NORTH_VOCAB)
+
+        idx.search_pipelined(batches, sp)        # warm-up
+        res, dt = drive("plain", lambda: idx.search_pipelined(batches, sp))
+        plain = [r for b in res for r in b]
+        out["plain"]["qps"] = N_NORTH_QUERIES / dt
+        if dev.n_slots < 1 << 24 and not (
+                out["plain"]["stats"].get("prefix", 0) > 0):
+            raise AssertionError(f"phase 16: impact-prefix rows expected: "
+                                 f"{out['plain']['stats']}")
+        res, dt = drive("mixed", lambda: idx.search_pipelined(mbatches, sp))
+        mx = [r for b in res for r in b]
+        out["mixed"]["qps"] = N_NORTH_QUERIES / dt
+        fz, dt = drive("fuzzy", lambda: idx.search_many(fuzzy, sp))
+        out["fuzzy"]["qps"] = N_NORTH_FUZZY / dt
+        if out["fuzzy"]["launches"]["nxs_myers_distances"] <= 0:
+            raise AssertionError("phase 16: no forward Myers launch")
+        typos = typos_of(idx, single[: N_NORTH_SINGLE // 2])
+        times = []
+
+        def singles():
+            got = []
+            for q in single:
+                t1 = time.perf_counter()
+                got.append(idx.search(q, sp))
+                times.append((time.perf_counter() - t1) * 1e3)
+            return got
+
+        one, _dt = drive("single", singles)
+        out["single"]["ms_per_search"] = median(times)
+        n_one = out["single"]["launches"]["nxs_myers_distances_one"]
+        if n_one != len(typos) or not typos:
+            raise AssertionError(f"phase 16: one single-query launch per "
+                                 f"distinct typo ({len(typos)}) expected, "
+                                 f"got {n_one}")
+        forget_typos(idx)
+        fuzzy_mod._USE_REV_KERNEL = True
+        try:
+            rev, dt = drive("rev", lambda: idx.search_many(fuzzy, sp))
+        finally:
+            fuzzy_mod._USE_REV_KERNEL = False
+        out["rev"]["qps"] = N_NORTH_FUZZY / dt
+        rl = out["rev"]["launches"]
+        if rl["nxs_myers_rev_distances"] <= 0 or rl["nxs_myers_distances"]:
+            raise AssertionError(f"phase 16: rev launches only expected: "
+                                 f"{rl}")
+        for q, w, g in zip(fuzzy, fz, rev):
+            same_answer(w, g, q)
+        search_mod._MASKED_HYBRID = False
+        try:
+            bd, dt = drive("blockdense", lambda: idx.search_many(bdq, sp))
+        finally:
+            search_mod._MASKED_HYBRID = True
+        out["blockdense"]["qps"] = len(bdq) / dt
+        if out["blockdense"]["stats"].get("blockdense", 0) <= 0 or \
+                out["blockdense"]["launches"]["nxs_segsum_blockdense"] <= 0:
+            raise AssertionError(f"phase 16: blockdense rows and segsum "
+                                 f"launches expected: {out['blockdense']}")
+        for q, w, g in zip(bdq, idx.search_many(bdq, sp), bd):
+            same_answer(w, g, q)
+        dn, dt = drive("dense", lambda: idx.search_many(dense, sp))
+        out["dense"]["qps"] = N_NORTH_DENSE / dt
+        if out["dense"]["stats"].get("dense", 0) != N_NORTH_DENSE:
+            raise AssertionError(f"phase 16: {N_NORTH_DENSE} dense rows "
+                                 f"expected: {out['dense']['stats']}")
+        for name, got in (("plain", plain), ("mixed", mx), ("fuzzy", fz),
+                          ("single", one), ("rev", rev), ("blockdense", bd),
+                          ("dense", dn)):
+            check_finite(got)
+            o = out[name]
+            log(f"phase 16 {name} ({card}): {o['seconds']} s"
+                + (f", {o['qps']} QPS" if "qps" in o else "")
+                + (f", {o['ms_per_search']} ms per search"
+                   if "ms_per_search" in o else "")
+                + f"; routes {o['stats']}; launches {o['launches']}")
+        log(f"phase 16: rev answers equal the forward route's, blockdense "
+            f"answers the default route's; widest dispatch groups "
+            f"{widest}")
+
+        t0 = time.perf_counter()
+        pick = np.random.default_rng(7)
+        oracle.n_typos = 0
+        for i in pick.choice(N_NORTH_QUERIES, N_NORTH_ORACLE, replace=False):
+            oracle.check_plain(queries[int(i)], plain[int(i)])
+        for i in pick.choice(N_NORTH_FUZZY, N_NORTH_FUZZY_ORACLE,
+                             replace=False):
+            oracle.check_plain(fuzzy[int(i)], fz[int(i)])
+        if oracle.n_typos < N_NORTH_FUZZY_ORACLE:
+            raise AssertionError(f"phase 16: only {oracle.n_typos} typo "
+                                 "tokens resolved")
+        masked = [i for i, q in enumerate(mixed) if " AND " in q]
+        for i in pick.choice(masked, N_NORTH_BOOL_ORACLE, replace=False):
+            oracle.check_boolean(mixed[int(i)], mx[int(i)])
+        for q, r in zip(dense, dn):
+            oracle.check_boolean(q, r)
+        log(f"phase 16 oracle: {N_NORTH_ORACLE} plain, "
+            f"{N_NORTH_FUZZY_ORACLE} fuzzy, {N_NORTH_BOOL_ORACLE} boolean "
+            f"and {N_NORTH_DENSE} dense answers agree (oracle build "
+            f"{oracle_s} s, checks {time.perf_counter() - t0} s)")
+        kern = north_kernels(idx, step_ops, fuzzy, bdq)
+        peak = (torch.cuda.max_memory_allocated() - mem0) if on_card else 0
+        rss = bench_torch.peak_rss()
+        log(f"phase 16 ({card}): peak device memory of the phase {peak} B; "
+            f"the process's peak host RSS so far {rss} B")
+        out.update(ingest_s=ingest_s, snapshot_s=snap_s, oracle_s=oracle_s,
+                   n_slots=dev.n_slots, n_postings=dev.n_postings,
+                   heavy_terms=heavy, dense_rows=n_rows, bytes=sizes,
+                   snapshot_mem=snap_mem, peak_mem=peak, host_peak_rss=rss,
+                   prefix=dev.prefix_stats, widest=widest, kernels=kern,
+                   launches=totals)
+    finally:
+        search_mod._group_rows_cap = rows_cap
+        DeviceIndex.DENSE_ROWS_MAX_BYTES = budget0
+        nxs.close()
+        shutil.rmtree(ldir)
+        if on_card:
+            torch.cuda.empty_cache()
+    out["bench"] = bench_entry(device, card)
+    return out
 
 
 def main() -> int:
@@ -2589,9 +3058,12 @@ def main() -> int:
                                              "mixed_qps": mixed["qps"]})
         finally:
             nxs.close()
-    # Phase 3's index is closed: phase 15 has the card and the host.
+    # Phase 3's index is closed: phase 15 has the card and the host,
+    # then phase 16.
     large = run_phase("phase 15 (large snapshot)", card, large_phase, sp,
                       card)
+    north = run_phase("phase 16 (north-star tier)", card, north_phase, sp,
+                      card, step_ops)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     log(json.dumps({
@@ -2603,24 +3075,28 @@ def main() -> int:
         "myers_step_instructions": step_ops, "ptxas": ptxas,
         "blockdense": {k: bd[k] for k in ("qps", "stats", "launches")},
         "fallback": fb, "parallel_ingest": par, "service": svc,
-        "entry_points": ep, "mesh": mesh, "large": large, "card": card,
+        "entry_points": ep, "mesh": mesh, "large": large,
+        "north": {k: v for k, v in north.items() if k != "kernels"},
+        "card": card,
         "snapshot_s": snapshot_s, "ingest_s": ingest_s, "docs": N_DOCS}))
 
     # No single PyTorch call computes Levenshtein distances or the
     # blockdense scores with their presence bits: library_ms is null.
     rows = [
         ("myers_distances", "myers.cu", "nxs_myers_distances",
-         "fuzzy.py:52", sl["launches"]["myers_distances"], kern["fwd"]),
+         "fuzzy.py:52", sl["launches"]["myers_distances"], kern["fwd"],
+         "fwd"),
         ("myers_rev_distances", "myers_rev.cu", "nxs_myers_rev_distances",
-         "fuzzy.py:162", rev["launches"]["rev"], kern["rev"]),
+         "fuzzy.py:162", rev["launches"]["rev"], kern["rev"], "rev"),
         ("blockdense_scores", "segsum.cu", "nxs_segsum_blockdense",
-         "segsum.py:162", bd["launches"], seg),
+         "segsum.py:162", bd["launches"], seg, "segsum"),
         ("myers_distances_one", "myers.cu", "nxs_myers_distances_one",
-         "fuzzy.py:40", one["launches"], kern["one"])]
+         "fuzzy.py:40", one["launches"], kern["one"], "one")]
     # Beside the keys every kernel has: its launches in phase 14's mesh
-    # drives and in phase 15's (the large snapshot), the single-query
-    # kernel's launch floor and cold-L2 time, the transposed kernel's
-    # time at M = 1.
+    # drives, in phase 15's (the large snapshot) and in phase 16's (the
+    # north-star tier) and its time and bound at phase 16's shapes
+    # ("north"), the single-query kernel's launch floor and cold-L2
+    # time, the transposed kernel's time at M = 1.
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
@@ -2629,8 +3105,10 @@ def main() -> int:
         **{k: m[k] for k in keys}, "library_ms": None,
         "mesh_launches": mesh["launches"][sym],
         "large_launches": large["launches"][sym],
+        "north_launches": north["launches"][sym],
+        "north": north["kernels"][at_tier],
         **{k: v for k, v in m.items() if k not in keys}}
-        for name, src, sym, tpu, n, m in rows]}))
+        for name, src, sym, tpu, n, m, at_tier in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

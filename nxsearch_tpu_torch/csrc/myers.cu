@@ -50,8 +50,11 @@
 //   __launch_bounds__(kOneThreads, 6) caps registers at 40 (nvcc
 //   -Xptxas -v for sm_90a: 24, no spills, 8 KB of shared memory), so
 //   eight blocks (64 warps, the SM's limit) fit an SM and the 782
-//   blocks of W = 200,000 are one wave on 132 SMs; no lookup band is
-//   wider.  An earlier form of this kernel (a one-wave grid-stride loop
+//   blocks of W = 200,000 are one wave on 132 SMs.  The north-star
+//   tier's band (bench.py's vocabulary of 1,000,000 terms) takes 3,907
+//   blocks, 3.7 waves of 1,056; there the kernel stays near its bytes
+//   bound (PERF.md), since each block is one load round trip and a few
+//   steps.  An earlier form of this kernel (a one-wave grid-stride loop
 //   with the next term's loads in flight) gained nothing measurable,
 //   and tools/myers_variants.py timed its blocks of 128 to 1024 threads
 //   within 10 % of each other (PERF.md).

@@ -1989,10 +1989,15 @@ def _submit_plans(dev, plans: list, queries: list[Query],
         if marks is not None:         # after the previous group's launch
             marks.append(_group_mark(dev))
         if sharded:                      # "spf", "ssl" or batch_key
+            # A batch_key group's rows pad no further than its row cap,
+            # as on one device: its [rows, Ss] planes per shard stay
+            # under the cap (8 padded rows of a 2**25-slot shard were 4x
+            # it).
             packed = _dispatch_mesh(
                 dev, key, [plans[i] for i in members], sp, k,
                 _row_pad(n, key[1], key[2], pf=True) if key[0] == "spf"
-                else _row_pad(n))
+                else _row_pad(n) if key[0] == "ssl"
+                else min(_row_pad(n), _group_rows_cap(dev, key)))
             pending.append((members, packed, "mesh"))
             continue
         if key[0] == "pf":

@@ -273,11 +273,12 @@ def test_mesh_phase_rehearsal(tmp_path, monkeypatch):
 
 def test_large_phase_rehearsal(monkeypatch):
     """Phase 15 on a small CPU index: the prefix, sliced and blockdense
-    routers off (as phase 10(b) turns them off; from 2**24 slots the
-    planner does), every drive on the candidate and dense executors,
-    the oracles, the targeted documents from a small slot threshold in
-    odd and even slots, and the removal.  The kernels' plain twins
-    bump their launch counts."""
+    routers off, and the mesh's (as phase 10(b) turns them off; from
+    2**24 slots the planner does), every drive on the candidate and
+    dense executors, the oracles, the targeted documents from a small
+    slot threshold in odd and even slots, the same index on a mesh of
+    one device (its candidate and dense bodies), and the removal.  The
+    kernels' plain twins bump their launch counts."""
     from nxsearch_tpu_torch import Params
     from nxsearch_tpu_torch import search as psearch
     from nxsearch_tpu_torch.ops import kernels
@@ -297,7 +298,9 @@ def test_large_phase_rehearsal(monkeypatch):
             _k.launches += 1
             return _fn(*a, **kw)
         monkeypatch.setattr(kernels, twin, counted)
-    for name in ("_prefix_mode", "_use_sliced", "_use_blockdense"):
+    for name in ("_prefix_mode", "_use_sliced", "_use_blockdense",
+                 "_prefix_mode_sharded", "_sharded_sliced",
+                 "_sharded_kernel"):
         monkeypatch.setattr(psearch, name, lambda *a, **kw: False)
     # Small tensors: one intra-op thread, as in the mesh rehearsal.
     threads = torch.get_num_threads()
@@ -313,4 +316,99 @@ def test_large_phase_rehearsal(monkeypatch):
     assert out["single"]["launches"]["nxs_myers_distances_one"] > 0
     assert out["dense"]["stats"]["dense"] == 2
     assert out["plain"]["stats"]["candidate"] == 256
+    mesh = out["mesh"]
+    assert mesh["targeted"] == 6 and mesh["targeted_odd"] == 4
+    assert mesh["stats"]["sharded_fallback"] == 6 + 2
     assert psearch._submit_plans.__name__ == "_submit_plans"   # restored
+
+
+def test_north_phase_rehearsal(monkeypatch):
+    """Phase 16 on a small CPU index of the north-star shapes' generator
+    (vocabulary 6000, mean length 60): the dense-row budget lowered to
+    the full tier's row count (and restored), every drive's routes and
+    launches (forward, transposed, single-query Myers and segsum, each
+    through its twin), the transposed and blockdense answers equal to
+    the forward and default routes', the oracles, the kernels at the
+    phase's shapes against their twins (a host clock for the card's
+    events), the widest dispatch groups, and bench_torch.py as a
+    subprocess on the CPU."""
+    import os
+    import shutil
+    import time
+
+    from nxsearch_tpu_torch import Params
+    from nxsearch_tpu_torch import search as psearch
+    from nxsearch_tpu_torch.index.device import DeviceIndex
+    from nxsearch_tpu_torch.ops import kernels
+
+    bench_args = ["--docs", "3000", "--vocab", "6000", "--queries", "64",
+                  "--batch", "32"]
+    for name, value in {"N_NORTH": 4000, "NORTH_VOCAB": 6000,
+                        "LARGE_CHUNK": 1500, "LARGE_GEN_WORKERS": 1,
+                        "N_NORTH_QUERIES": 256, "BATCH": 64,
+                        "N_NORTH_FUZZY": 32, "N_NORTH_SINGLE": 8,
+                        "N_NORTH_DENSE": 2, "N_NORTH_ORACLE": 8,
+                        "N_NORTH_FUZZY_ORACLE": 4, "N_NORTH_BOOL_ORACLE": 4,
+                        "N_BD": 32, "KERNEL_M": 8, "KERNEL_REPS": 1,
+                        "NORTH_BENCH": bench_args}.items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    for twin, kernel in (("myers_distances_ref", kernels.MYERS),
+                         ("myers_distances_one_ref", kernels.MYERS_ONE),
+                         ("myers_rev_distances_ref", kernels.MYERS_REV),
+                         ("blockdense_scores_ref", kernels.SEGSUM)):
+        def counted(*a, _fn=getattr(kernels, twin), _k=kernel, **kw):
+            _k.launches += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(kernels, twin, counted)
+
+    def host_times(fn, runs, reps=1, flush=None):
+        out = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            out.append((time.perf_counter() - t0) * 1e3 / reps)
+        return out
+
+    monkeypatch.setattr(chip_smoke, "cuda_times", host_times)
+    monkeypatch.setattr(chip_smoke, "int32_ops_per_s", lambda: 1.0e13)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
+    monkeypatch.setenv("NXS_MALLOC_TUNE", "0")
+    # The bench_torch.py subprocess too takes one intra-op thread: with
+    # every core's worth beside the suite's other workers its small
+    # ops run thousands of times slower.
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    budget = DeviceIndex.DENSE_ROWS_MAX_BYTES
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    cache = os.path.join(chip_smoke.ROOT, ".bench_cache",
+                         "d3000-v6000-l40-s42")
+    try:
+        out = chip_smoke.north_phase(Params().set_uint("limit", 10),
+                                     "a card, 700 W", 17.0, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+        shutil.rmtree(cache, ignore_errors=True)
+    assert DeviceIndex.DENSE_ROWS_MAX_BYTES == budget            # restored
+    assert psearch._group_rows_cap.__name__ == "_group_rows_cap"
+    assert psearch._MASKED_HYBRID is True
+    rows = out["dense_budget"]["rows"]
+    assert rows == budget // (4 * 9 * (1 << 20))                # full tier
+    assert out["dense_budget"]["set"] == rows * 4 * 4096
+    assert out["dense_rows"] == rows < out["heavy_terms"]
+    assert out["plain"]["stats"]["prefix"] > 0
+    assert out["fuzzy"]["launches"]["nxs_myers_distances"] > 0
+    assert out["single"]["launches"]["nxs_myers_distances_one"] > 0
+    assert out["rev"]["launches"]["nxs_myers_rev_distances"] > 0
+    assert out["blockdense"]["launches"]["nxs_segsum_blockdense"] > 0
+    assert out["dense"]["stats"]["dense"] == 2
+    for name in ("nxs_myers_distances", "nxs_myers_distances_one",
+                 "nxs_myers_rev_distances", "nxs_segsum_blockdense"):
+        assert out["launches"][name] > 0, name
+    for name in ("fwd", "rev", "one", "segsum"):
+        k = out["kernels"][name]
+        assert k["max_abs_err"] == 0 and k["bound_ms"] > 0, name
+    assert out["kernels"]["fwd"]["shape"]["W"] == 6000
+    assert out["widest"]["pf"]["qs"] > 0 and out["widest"]["bd"]["q"] > 0
+    line = out["bench"]["line"]
+    assert line["detail"]["docs"] == 3000 and line["value"] > 0

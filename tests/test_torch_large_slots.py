@@ -10,7 +10,11 @@ their own ids through ``search_many``, ``search_pipelined`` and
 ``search``, under BM25 and TF-IDF, with scores within 1e-4 of a numpy
 oracle (f64, ties to the lowest device slot; delta documents after
 the base snapshot's), before and after a delta add and a removal past
-2**24.  The last test mutates the shared index.
+2**24.  The same index on a mesh of one device (a shard of 2**24 slots
+or more) answers through the mesh's candidate and dense bodies, which
+read the exact int32 shard column: its documents in odd and even
+global slots past 2**24 come back with the oracle's ids and scores.
+The last test mutates the shared index.
 
 At the executor level the reference's fault is kept on record: its
 candidate executor, given the slot column derived from its f32 pack,
@@ -27,6 +31,8 @@ import large_slots_corpus as corpus
 import nxsearch_tpu_torch
 from nxsearch_tpu_torch import search as psearch
 from nxsearch_tpu_torch.index.device import DeviceIndex
+from nxsearch_tpu_torch.parallel import make_mesh
+from nxsearch_tpu_torch.parallel import sharded as psharded
 from nxsearch_tpu_torch.query.ast import (EXPR_OP_AND, EXPR_OP_OR,
                                           EXPR_VAL_TOKEN)
 from nxsearch_tpu_torch.query.parser import parse_query
@@ -97,8 +103,8 @@ class Oracle:
                     * idf
         return t, out
 
-    def top(self, query: str):
-        """[(doc id, score)] of the query's top LIMIT documents."""
+    def top(self, query: str, limit: int = LIMIT):
+        """[(doc id, score)] of the query's top ``limit`` documents."""
         root = parse_query(query)
         acc, seen = {}, set()
 
@@ -118,14 +124,14 @@ class Oracle:
             return left - right
 
         match = docs(root)
-        hit = sorted(match, key=lambda s: (-acc[s], self.rank[s]))[:LIMIT]
+        hit = sorted(match, key=lambda s: (-acc[s], self.rank[s]))[:limit]
         return [(int(self.host.doc_ids.a[s]), acc[s]) for s in hit]
 
 
-def check(oracle, queries, responses):
+def check(oracle, queries, responses, limit: int = LIMIT):
     assert len(responses) == len(queries)
     for q, resp in zip(queries, responses):
-        want = oracle.top(q)
+        want = oracle.top(q, limit)
         got = resp.results
         assert [d for d, _ in got] == [d for d, _ in want], q
         np.testing.assert_allclose([s for _, s in got],
@@ -205,6 +211,63 @@ def test_dense_executor_past_2_24_slots(big, entry):
     assert_plain_routes(1)
     check(Oracle(big, "BM25"), [corpus.WIDE], got)
     assert len(got[0].results) == LIMIT
+
+
+@pytest.fixture(scope="module")
+def mesh_big(big):
+    """``big`` on a mesh of one CPU device, through a second handle over
+    its basedir (global slot == host slot)."""
+    big.checkpoint()                 # the second handle opens this
+    nxs = nxsearch_tpu_torch.Nxs(big.nxs.basedir,
+                                 mesh=make_mesh([torch.device("cpu")]))
+    try:
+        idx = nxs.index_open("big")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(DeviceIndex, "DENSE_DF_DIV", 4300)
+            idx.search("tail")                   # builds the shard
+        yield idx
+    finally:
+        nxs.close()
+
+
+# Every document of f0 (df 4159, each of length 1: all tie) and every
+# match of the dense query fit under this limit.
+MESH_LIMIT = 4200
+MESH_DENSE = ("(" + " ".join([f"u{k}" for k in range(corpus.TAIL)]
+                             + [f"p{m}" for m in range(corpus.TAIL // 2)]
+                             + ["low0", "low1", "f0"]) + ") AND NOT p3")
+
+
+@pytest.mark.parametrize("query,dense", [("f0", False),
+                                         (MESH_DENSE, True)])
+def test_mesh_shard_past_2_24_slots(mesh_big, big, monkeypatch, query,
+                                    dense):
+    """A mesh whose one shard holds 2**24 slots or more: the mesh's
+    prefix, sliced and kernel bodies are gated below 2**24 per shard,
+    so ``f0`` takes the candidate body and the 40-term query the dense
+    body, over the exact int32 shard column.  The 64 documents of host
+    (= global) slots 2**24 .. 2**24 + 63, odd and even, hold f0: each
+    comes back with the oracle's ids and scores, ties to the lowest
+    host slot."""
+    assert mesh_big.dev.slots_per_shard >= 1 << 24
+    bodies = []
+    batch = psharded.sharded_search_batch
+
+    def spy(*a, **kw):
+        bodies.append(kw["use_dense"])
+        return batch(*a, **kw)
+
+    monkeypatch.setattr(psharded, "sharded_search_batch", spy)
+    psearch.EXEC_STATS.clear()
+    sp = nxsearch_tpu_torch.Params().set_uint("limit", MESH_LIMIT)
+    got = mesh_big.search_many([query], sp)
+    assert psearch.EXEC_STATS == {"sharded_fallback": 1}
+    assert bodies == [dense]
+    oracle = Oracle(big, "BM25")
+    oracle.rank = np.arange(big.host.doc_ids.n)
+    check(oracle, [query], got, MESH_LIMIT)
+    past = {d for d, _ in got[0].results if d - 1 >= 1 << 24}
+    assert past == set(range((1 << 24) + 1, (1 << 24) + 65))
 
 
 def test_reference_names_the_even_neighbour():

@@ -447,6 +447,48 @@ def test_mesh_dense_rows(tmp_path, monkeypatch):
         close_all(handles)
 
 
+def test_mesh_plain_rows_pad_under_their_cap(tmp_path, monkeypatch):
+    """A mesh's candidate and dense groups pad their rows no further than
+    the group's row cap, as on one device (the fallback body serves
+    every row here): with the blockdense cap at
+    two shards' worth of slots (a cap of 2 rows, as a shard of 2**25
+    slots has under the real cap) no call of the shard body gets more
+    than 2 rows, where the grid's floor of 8 padded them to 4x the cap;
+    the answers equal the reference's and the single device's."""
+    handles, trio = _build(tmp_path, "p", _zipf_docs(19, 250, 40, 12))
+    jidx, pidx, _sidx = trio
+    words = [f"t{i:02d}" for i in range(40)]
+    queries = ["t00 t03", "t05 AND t01", "t02 t07 AND NOT t00",
+               "(" + " OR ".join(words[:36]) + ") AND NOT t39",
+               "t11 t12 t13"]
+    try:
+        pidx.search("t00")
+        cap = 2
+        monkeypatch.setattr(psearch, "_BD_ELEMS_CAP",
+                            cap * pidx.dev.slots_per_shard)
+        for name in ("_prefix_mode_sharded", "_sharded_sliced",
+                     "_sharded_kernel"):
+            monkeypatch.setattr(psearch, name, lambda *a, **kw: False)
+        rows, bodies = [], []
+        batch = psh.sharded_search_batch
+
+        def spy(*a, **kw):
+            rows.append(a[4].shape[1])            # q_start [n_dev, N, Q]
+            bodies.append(kw["use_dense"])
+            return batch(*a, **kw)
+
+        monkeypatch.setattr(psh, "sharded_search_batch", spy)
+        psearch.EXEC_STATS.clear()
+        got = pidx.search_many(queries, pparams(limit=20))
+        assert psearch.EXEC_STATS == {"sharded_fallback": len(queries)}
+        assert True in bodies                     # the dense body
+        assert rows and max(rows) <= cap, rows
+        for q, g in zip(queries, got):
+            assert_same(jidx.search(q, jparams(limit=20)), g, q)
+    finally:
+        close_all(handles)
+
+
 # -- the shard bodies on the same inputs as their reference twins ------
 
 @pytest.fixture(scope="module")
