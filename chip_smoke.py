@@ -36,7 +36,13 @@ of those paths against its plain PyTorch twin.  Phases (any failure exits non-ze
    rev, rev, fwd) on each set, and at M = 1 the single-query, batched
    and transposed kernels in turns; beside them the per-call floor of
    an empty kernel launched back to back, and the single-query kernel
-   one call at a time after a 64 MB write (L2 cold);
+   one call at a time after a 64 MB write (L2 cold); then the segsum
+   kernel on two synthetic launches made on the card from a seed
+   (segsum_synthetic): the north-star tier's launch shape (7 rows of
+   9,437,184 slots, 8 terms, rows drawn as phase 7's from the tier's
+   damped Zipf law) and heavy terms (the same shape, 8 terms of
+   1,000,000 postings in every row), each equal bit for bit to its
+   twin, timed in turns with torch.zeros of the same output bytes;
 3. slice phase: ingest bench.py's 1M tier (zipf_range, vocab 200k,
    mean length 40) into a temporary basedir; after one warm-up pass,
    three passes of search_pipelined over 8192 make_queries queries in
@@ -75,7 +81,10 @@ of those paths against its plain PyTorch twin.  Phases (any failure exits non-ze
    blockdense route's shape (the 64 first blockdense queries: bounds
    rows from the snapshot's cache, 8 terms, every slot, BM25, presence
    bits), scores and bits equal bit for bit, both timed with CUDA
-   events;
+   events, the kernel in turns with torch.zeros of its output bytes
+   (store_floor_ms); the bound counts the per-slot columns only in
+   blocks where some row has a posting, and a posting several rows
+   share once;
 9. boolean oracle: 64 sampled masked queries of each of phases 6 and 7,
    their parsed query trees walked over per-term document sets of the
    host CSR, BM25 over the matching documents (same tie rule and
@@ -287,6 +296,23 @@ INT32_LANES_PER_SM = 64
 # step (myers_step_instructions).  Segsum: ops per posting (ltf*idf,
 # ltf+c1, c2*dl, +, /, and the accumulate).
 SEGSUM_POSTING_OPS = 6
+# Synthetic segsum launches (segsum_synthetic): the 1M tier's (N =
+# N_SEGSUM rows of the real index's launch; bench.py's 1M tier, about
+# 40M postings, 50 dense rows) and the north-star tier's (7 rows of
+# 9,437,184 slots: the 8.8M-document tier, vocabulary 1M, 516,547,411
+# postings, 35 dense rows), and the heavy case: the tier's slots, 8
+# terms of 1,000,000 postings in every row (each (row, block) holds
+# about 108 postings of every term).
+SEGSUM_CASES = {
+    "1m": {"rows": 64, "slots": 1 << 20, "docs": 1_000_000,
+           "vocab": 200_000, "postings": 40_000_000, "dense": 50,
+           "mean_len": 40},
+    "tier": {"rows": 7, "slots": 9_437_184, "docs": 8_800_000,
+             "vocab": 1_000_000, "postings": 516_547_411, "dense": 35,
+             "mean_len": 60},
+    "heavy": {"rows": 7, "slots": 9_437_184, "docs": 8_800_000,
+              "heavy": 8, "heavy_df": 1_000_000, "mean_len": 60},
+}
 # csrc/myers_step.cuh alone: probe<K> runs K steps on per-thread state
 # loaded from memory, so probe<9> - probe<1> is 8 steps' instructions.
 STEP_PROBE = r"""
@@ -780,10 +806,7 @@ def vocab(n: int = 0):
     import numpy as np
 
     n = n or VOCAB
-    ranks = np.arange(n, dtype=np.float64)
-    probs = 1.0 / (ranks + 10.0)
-    probs /= probs.sum()
-    return np.array([f"w{i:05d}" for i in range(n)]), probs
+    return np.array([f"w{i:05d}" for i in range(n)]), zipf_probs(n)
 
 
 def workload():
@@ -1273,13 +1296,13 @@ def segsum_phase(idx, queries: list[str], n_rows: int = 0) -> dict:
     """The segsum kernel against its plain twin at the blockdense
     route's shape: the first ``n_rows`` (N_SEGSUM) blockdense queries'
     kernel terms (bounds rows from the snapshot's cache), every slot,
-    BM25."""
+    BM25 (segsum_case)."""
     import numpy as np
     import torch
 
     from nxsearch_tpu_torch import Params
     from nxsearch_tpu_torch import search as search_mod
-    from nxsearch_tpu_torch.ops import executor, kernels
+    from nxsearch_tpu_torch.ops import executor
 
     dev = idx.dev
     sp = search_mod.get_search_params(idx.algo,
@@ -1299,6 +1322,73 @@ def segsum_phase(idx, queries: list[str], n_rows: int = 0) -> dict:
     args = (dev.postings_slot, dev.postings_ltf, dev.doc_len,
             executor.alive_factors(dev.alive_mask), bounds,
             torch.from_numpy(coef).to(dev.device))
+    return segsum_case(args, "segsum phase")
+
+
+def occupied_blocks(bounds) -> int:
+    """Blocks in which some row of the launch has a posting: some
+    (n, q) with bounds[n, q, g] < bounds[n, q, g + 1]."""
+    if bounds.shape[1] == 0:
+        return 0
+    return int((bounds[:, :, 1:] > bounds[:, :, :-1]).any(1).any(0).sum())
+
+
+def distinct_postings(bounds) -> int:
+    """Postings one launch must read: the union of its (row, term)
+    ranges [bounds[n, q, 0], bounds[n, q, G]), so that a term several
+    rows share counts once."""
+    import numpy as np
+
+    lo = bounds[:, :, 0].reshape(-1).cpu().numpy().astype(np.int64)
+    hi = bounds[:, :, -1].reshape(-1).cpu().numpy().astype(np.int64)
+    keep = lo < hi
+    order = np.argsort(lo[keep], kind="stable")
+    lo, hi = lo[keep][order], hi[keep][order]
+    if lo.size == 0:
+        return 0
+    # With starts sorted, the ranges before range i cover [lo[i], reach)
+    # where reach is the furthest end among them.
+    reach = np.concatenate(([lo[0]], np.maximum.accumulate(hi)[:-1]))
+    return int(np.maximum(hi - np.maximum(lo, reach), 0).sum())
+
+
+def segsum_bytes(bounds, n_slots: int, n_read: int, n_occupied: int) -> int:
+    """Bytes one segsum launch must move: scores and bits written once
+    (8 B a slot a row); the slot and ltf of each of the ``n_read``
+    distinct postings, the bounds and coef read once; the per-slot doc
+    lengths and alive factors (8 B a slot) read only in blocks where
+    some row has a posting."""
+    n_rows, n_terms = bounds.shape[0], bounds.shape[1]
+    return (8 * n_rows * n_slots + 8 * n_read + 8 * 1024 * n_occupied
+            + 4 * bounds.numel() + 16 * n_rows * n_terms)
+
+
+def segsum_bound(bounds, n_slots: int) -> dict:
+    """One segsum launch's postings (summed over the rows: the adds it
+    does), distinct postings (what it reads), occupied blocks and bound
+    (segsum_bytes over the distinct postings; its operations are
+    SEGSUM_POSTING_OPS a row's posting at the FP32 rate)."""
+    n_post = int((bounds[:, :, -1] - bounds[:, :, 0]).clamp(min=0).sum())
+    n_read = distinct_postings(bounds)
+    n_occ = occupied_blocks(bounds)
+    return {"postings": n_post, "distinct_postings": n_read,
+            "occupied_blocks": n_occ,
+            **bound(segsum_bytes(bounds, n_slots, n_read, n_occ),
+                    SEGSUM_POSTING_OPS * n_post, FP32_OPS_PER_S)}
+
+
+def segsum_case(args, label: str) -> dict:
+    """One segsum launch's inputs ``args`` (blockdense_scores' order),
+    BM25 with presence bits: the kernel held bit for bit to its twin,
+    both timed, and the kernel in turns with ``torch.zeros`` of the
+    same 8 x N x S bytes (the card's store rate on this output:
+    ``store_floor_ms``, a yardstick, not the same function); the bound
+    over this launch's postings and occupied blocks (segsum_bound)."""
+    import torch
+
+    from nxsearch_tpu_torch.ops import kernels
+
+    bounds, n_slots = args[4], args[2].shape[0]
 
     def kernel():
         return kernels.blockdense_scores(*args, algo=0, use_mask=True)
@@ -1306,29 +1396,127 @@ def segsum_phase(idx, queries: list[str], n_rows: int = 0) -> dict:
     def plain():
         return kernels.blockdense_scores_ref(*args, algo=0, use_mask=True)
 
+    def floor():
+        return torch.zeros(2 * bounds.shape[0] * n_slots,
+                           dtype=torch.float32, device=bounds.device)
+
     got_s, got_b = kernel()
     want_s, want_b = plain()
     torch.cuda.synchronize()
     max_err = float((got_s - want_s).abs().max())
     if not (torch.equal(got_s, want_s) and torch.equal(got_b, want_b)):
         raise AssertionError(
-            f"segsum kernel disagrees with its twin: max |diff| {max_err}, "
-            f"{int((got_b != want_b).sum())} bit words differ")
+            f"{label}: segsum kernel disagrees with its twin: max |diff| "
+            f"{max_err}, {int((got_b != want_b).sum())} bit words differ")
     if not bool((want_s > 0).any()):
-        raise AssertionError("segsum phase scored nothing")
-    kernel_ms = cuda_time_ms(kernel, 21, KERNEL_REPS)
+        raise AssertionError(f"{label}: segsum scored nothing")
+    del got_s, got_b, want_s, want_b
+    ms = in_turns({"kernel": kernel, "floor": floor},
+                  ("kernel", "floor", "floor", "kernel"), (),
+                  reps=KERNEL_REPS)
     plain_ms = cuda_time_ms(plain, 5)
-    n_post = int((bounds[:, :, -1] - bounds[:, :, 0]).sum())
-    # Scores and bits written once; each posting's slot and ltf, the
-    # per-slot columns, the bounds and coef read once.
-    n_bytes = (8 * bounds.shape[0] * dev.n_slots + 8 * n_post
-               + 8 * dev.n_slots + 4 * bounds.numel() + 4 * coef.size)
-    b = bound(n_bytes, SEGSUM_POSTING_OPS * n_post, FP32_OPS_PER_S)
-    log(f"segsum phase: N={bounds.shape[0]} Q={bounds.shape[1]} "
-        f"S={dev.n_slots} ({n_post} postings): scores and bits exact; "
-        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {b}")
-    return {"max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-            **b}
+    b = segsum_bound(bounds, n_slots)
+    out = {"max_abs_err": max_err, "ms": ms["kernel"], "plain_ms": plain_ms,
+           **b, "ratio": b["bound_ms"] / ms["kernel"],
+           "store_floor_ms": ms["floor"],
+           "shape": {"N": bounds.shape[0], "Q": bounds.shape[1],
+                     "S": n_slots}}
+    log(f"{label}: segsum N={bounds.shape[0]} Q={bounds.shape[1]} "
+        f"S={n_slots} ({b['postings']} postings over the rows, "
+        f"{b['distinct_postings']} distinct, {b['occupied_blocks']} "
+        f"of {n_slots // 1024} blocks occupied): scores and bits exact; "
+        f"kernel {ms['kernel']:.4f} ms, store floor {ms['floor']:.4f} ms, "
+        f"plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}), ratio {out['ratio']:.4f}")
+    return out
+
+
+def zipf_probs(n: int):
+    """bench.py's damped Zipf term probabilities over ``n`` words."""
+    import numpy as np
+
+    probs = 1.0 / (np.arange(n, dtype=np.float64) + 10.0)
+    return probs / probs.sum()
+
+
+def segsum_synthetic(case: str, seed: int = 45, device: str = "cuda"):
+    """(args, facts) of one segsum launch at SEGSUM_CASES[case]'s shape,
+    made on ``device`` from ``seed``.  Each term's df is its share of
+    the corpus's postings under the damped Zipf law (at most one a
+    document), its postings a uniform sample of the documents (slot i
+    is document i), ltf log(1 + tf) with tf in 1-7.  A corpus case
+    draws rows as bd_queries does ("d AND a", "a b AND NOT d": words
+    drawn in proportion to p ** 0.35; a word with a dense row, like d,
+    takes the all-zero bounds row); a heavy case gives every row its
+    ``heavy`` terms of ``heavy_df`` postings, rotated.  Rows are padded
+    to MAX_KERNEL_TERMS terms with the all-zero row.  Doc lengths lie in
+    [mean / 2, 3 mean / 2]; slots past the documents and 1 % of the
+    others are dead."""
+    import numpy as np
+    import torch
+
+    from nxsearch_tpu_torch.ops import executor, kernels
+
+    c = SEGSUM_CASES[case]
+    n_rows, n_slots, n_docs = c["rows"], c["slots"], c["docs"]
+    n_terms = kernels.MAX_KERNEL_TERMS
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(1 << 62)))
+    cols = np.full((n_rows, n_terms), -1, np.int64)
+    if "heavy" in c:
+        df = np.full(c["heavy"], c["heavy_df"], np.int64)
+        for r in range(n_rows):
+            k = min(n_terms, c["heavy"])
+            cols[r, :k] = (np.arange(k) + r) % c["heavy"]
+    else:
+        probs = zipf_probs(c["vocab"])
+        qp = probs ** 0.35
+        qp /= qp.sum()
+        picks = rng.choice(len(probs), size=(n_rows, 2), p=qp)
+        words = np.unique(picks[picks >= c["dense"]])
+        df = np.minimum(n_docs, np.rint(c["postings"] * probs[words]))
+        df = np.maximum(df, 1).astype(np.int64)
+        at = {int(w): i for i, w in enumerate(words)}
+
+        def col(w):
+            return at.get(int(w), -1)
+        for r in range(n_rows):
+            a, b = picks[r]
+            cols[r, :3] = ((-1, col(a), -1) if r % 2 == 0
+                           else (col(a), col(b), -1))
+    slots, ltfs = [], []
+    for d in df:
+        perm = torch.randperm(n_docs, generator=gen, device=device)
+        slots.append(perm[: int(d)].sort().values.to(torch.int32))
+        tf = torch.randint(1, 8, (int(d),), generator=gen, device=device)
+        ltfs.append(torch.log1p(tf.to(torch.float32)))
+    lens = torch.tensor(df, dtype=torch.int32, device=device)
+    starts = (torch.cumsum(lens, 0) - lens).to(torch.int32)
+    total = int(df.sum())
+    p_pad = -(-(total + 1) // 1024) * 1024
+    ps = torch.zeros(p_pad, dtype=torch.int32, device=device)
+    pf = torch.zeros(p_pad, dtype=torch.float32, device=device)
+    ps[:total] = torch.cat(slots)
+    pf[:total] = torch.cat(ltfs)
+    n_blocks = n_slots // 1024
+    rows = executor.csr_block_bounds(ps, starts, lens, n_blocks=n_blocks)
+    pick = torch.from_numpy(cols).to(device)
+    bounds = torch.where((pick >= 0)[..., None], rows[pick.clamp(min=0)],
+                         0).to(torch.int32).contiguous()
+    mean = c["mean_len"]
+    dl = torch.randint(mean // 2, mean + mean // 2 + 1, (n_slots,),
+                       generator=gen, device=device).to(torch.float32)
+    live = torch.rand(n_slots, generator=gen, device=device) > 0.01
+    live[n_docs:] = False
+    idf = np.log1p((n_docs - df + 0.5) / (df + 0.5)).astype(np.float32)
+    coef = np.zeros((n_rows, n_terms, 4), np.float32)
+    coef[..., 0] = np.where(cols >= 0, idf[np.maximum(cols, 0)], 1.0)
+    coef[..., 1] = np.float32(1.2 * 0.25)
+    coef[..., 2] = np.float32(1.2 * 0.75) / np.float32(mean)
+    args = (ps, pf, dl, live.to(torch.float32), bounds,
+            torch.from_numpy(coef).to(device))
+    return args, {"terms": len(df), "term_postings": total}
 
 
 def dense_queries(idx, n: int = 0, n_vocab: int = 0) -> list[str]:
@@ -2703,8 +2891,7 @@ def north_kernels(idx, step_ops: float, fuzzy: list, bdq: list) -> dict:
     # One blockdense launch's rows (search._group_rows_cap for "bd").
     n_bd = min(N_SEGSUM, max(1, search_mod._BD_ELEMS_CAP
                              // idx.dev.n_slots))
-    seg = segsum_phase(idx, bdq, n_rows=n_bd)
-    out["segsum"] = {**seg, "shape": {"N": n_bd, "S": idx.dev.n_slots}}
+    out["segsum"] = segsum_phase(idx, bdq, n_rows=n_bd)
     log(f"phase 16 kernels at the tier's shapes: {out}")
     return out
 
@@ -3020,6 +3207,15 @@ def main() -> int:
         log(f"ptxas -v {name}: {u}")
 
     kern = kernel_phase(step_ops)
+    # Segsum at the north-star tier's launch shape and on heavy terms,
+    # from synthetic postings (phase 16 runs a cut of the tier).
+    seg_cases = {}
+    for name in ("tier", "heavy"):
+        args, facts = segsum_synthetic(name)
+        seg_cases[name] = {**segsum_case(args, f"segsum {name} case"),
+                           **facts}
+        del args
+    torch.cuda.empty_cache()
     sp = Params().set_uint("limit", 10)
     with tempfile.TemporaryDirectory() as workdir:
         nxs, idx, ingest_s = ingest(workdir)
@@ -3039,7 +3235,7 @@ def main() -> int:
             one = single_phase(idx, sp)
             mixed = mixed_phase(idx, sp)
             bd = bd_phase(idx, sp)
-            seg = segsum_phase(idx, bd["queries"])
+            seg = {**segsum_phase(idx, bd["queries"]), "cases": seg_cases}
             boolean_oracle(oracle, mixed, bd)
             fb = fallback_phase(idx, sp, oracle, card)
             # The served index as a deployment leaves it after ingest:
@@ -3096,7 +3292,9 @@ def main() -> int:
     # drives, in phase 15's (the large snapshot) and in phase 16's (the
     # north-star tier) and its time and bound at phase 16's shapes
     # ("north"), the single-query kernel's launch floor and cold-L2
-    # time, the transposed kernel's time at M = 1.
+    # time, the transposed kernel's time at M = 1, segsum's store floor,
+    # postings, distinct postings, occupied blocks and synthetic cases
+    # ("cases": the north-star tier's launch shape and heavy terms).
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

@@ -399,6 +399,7 @@ SEGSUM = CudaKernel("segsum.cu", "nxs_segsum_blockdense",
 
 BLOCK_SLOTS = 1024      # slots per kernel block (R of the reference)
 MAX_KERNEL_TERMS = 8    # wider queries run the kernel per 8-term group
+SEGSUM_MAX_TERMS = 512  # one row's bounds pairs fit a tile (segsum.cu)
 
 
 def blockdense_scores_ref(postings_slot: torch.Tensor,  # int32[P]
@@ -462,7 +463,9 @@ def blockdense_scores(postings_slot: torch.Tensor, postings_ltf: torch.Tensor,
     """Per-slot scores f32[N, S] and presence bits int32[N, S] (u32
     words) of N queries' term groups: the segsum kernel for CUDA
     tensors, the plain twin for CPU tensors; any other device raises.
-    Inputs as blockdense_scores_ref; S is a multiple of BLOCK_SLOTS."""
+    Inputs as blockdense_scores_ref; S is a multiple of BLOCK_SLOTS,
+    at most SEGSUM_MAX_TERMS terms, doc_len, alive_f and coef 16-byte
+    aligned."""
     dev = postings_slot.device
     if dev.type == "cpu":
         return blockdense_scores_ref(postings_slot, postings_ltf, doc_len,
@@ -489,9 +492,14 @@ def blockdense_scores(postings_slot: torch.Tensor, postings_ltf: torch.Tensor,
                 f"blockdense_scores: {name} must be a contiguous {dtype} "
                 f"tensor of shape {shape} on {dev}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
-    if alive_f.data_ptr() % 16:
-        raise ValueError("blockdense_scores: alive_f must be 16-byte "
-                         "aligned")
+    if n_terms > SEGSUM_MAX_TERMS:
+        raise ValueError(f"blockdense_scores: {n_terms} terms; a launch "
+                         f"takes at most {SEGSUM_MAX_TERMS}")
+    for name, t in (("doc_len", doc_len), ("alive_f", alive_f),
+                    ("coef", coef)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"blockdense_scores: {name} must be 16-byte "
+                             "aligned")
     scores = torch.empty((n_batch, n_slots), dtype=torch.float32, device=dev)
     bits = torch.empty((n_batch, n_slots), dtype=torch.int32, device=dev)
     if n_batch:

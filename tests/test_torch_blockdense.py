@@ -36,15 +36,17 @@ RTOL = 1e-6
 C1 = np.float32(1.2 * 0.25)
 
 
-def make_csr(seed, lens, n_slots=S):
-    """Slot-sorted CSR postings of len(lens) terms over n_slots slots,
-    plus doc lengths and an alive bitmap with a few dead slots."""
+def make_csr(seed, lens, n_slots=S, slots=None):
+    """Slot-sorted CSR postings of len(lens) terms over n_slots slots
+    (random ones, or term i's ``slots[i]``), plus doc lengths and an
+    alive bitmap with a few dead slots."""
     rng = np.random.default_rng(seed)
     starts, slot, ltf = [], [], []
     pos = 0
-    for n in lens:
+    for i, n in enumerate(lens):
         starts.append(pos)
-        slot.append(np.sort(rng.choice(n_slots, size=n, replace=False)))
+        slot.append(np.sort(rng.choice(n_slots, size=n, replace=False))
+                    if slots is None else np.sort(slots[i]))
         ltf.append(np.log(rng.integers(1, 6, n) + 1.0))
         pos += n
     # Zero padding rows past the CSR, to a multiple of 1024 as in every
@@ -96,16 +98,51 @@ def _bounds_for(ps, starts, lens, rows, n_blocks=G):
     return out
 
 
-@pytest.mark.parametrize("use_mask", [False, True])
-@pytest.mark.parametrize("algo", [0, 1])
-def test_blockdense_scores_twin_matches_pallas(algo, use_mask):
-    ps, pf, dl, am, starts, lens = make_csr(2, LENS)
-    rows = [[1, 2, 3, 0, -1, 4, 5, 6],        # empty term, zeroed row
-            [7, 8, 9, 10, 2, 3, -1, -1]]
+def _twin_case(case):
+    """(csr, bounds rows) of a twin-vs-Pallas case.  "mixed": terms of
+    LENS in two rows.  "rows_apart": every term's postings lie in one
+    block, and rows 0-3 hold terms of blocks 0-3 only (row 1 two terms of
+    block 1), so each row is empty in all but one block and row 4 in
+    all.  "full_block": term 0 holds all 1024 slots of block 2, term 1
+    500 random slots, in both rows."""
+    if case == "mixed":
+        return make_csr(2, LENS), [[1, 2, 3, 0, -1, 4, 5, 6],
+                                   [7, 8, 9, 10, 2, 3, -1, -1]]
+    rng = np.random.default_rng(5)
+    if case == "rows_apart":
+        slots = [1024 * b + rng.choice(1024, size=n, replace=False)
+                 for b, n in ((0, 300), (1, 5), (2, 1000), (3, 64),
+                              (1, 700))]
+        rows = [[0, -1, -1, -1, -1, -1, -1, -1],
+                [-1, 1, 4, -1, -1, -1, -1, -1],
+                [2, -1, -1, -1, -1, -1, -1, -1],
+                [-1, -1, -1, 3, -1, -1, -1, -1],
+                [-1] * 8]
+    else:
+        slots = [np.arange(2048, 3072), rng.choice(S, size=500,
+                                                   replace=False)]
+        rows = [[0, 1, -1, -1, -1, -1, -1, -1],
+                [1, -1, 0, -1, -1, -1, -1, -1]]
+    return make_csr(6, [len(x) for x in slots], slots=slots), rows
+
+
+@pytest.mark.parametrize("algo,use_mask,case", [
+    pytest.param(0, False, "mixed", id="0-False"),
+    pytest.param(0, True, "mixed", id="0-True"),
+    pytest.param(1, False, "mixed", id="1-False"),
+    pytest.param(1, True, "mixed", id="1-True"),
+    pytest.param(0, True, "rows_apart", id="rows-apart-0-True"),
+    pytest.param(1, False, "rows_apart", id="rows-apart-1-False"),
+    pytest.param(0, True, "full_block", id="full-block-0-True"),
+    pytest.param(1, True, "full_block", id="full-block-1-True"),
+])
+def test_blockdense_scores_twin_matches_pallas(algo, use_mask, case):
+    (ps, pf, dl, am, starts, lens), rows = _twin_case(case)
     bounds = _bounds_for(ps, starts, lens, rows)
     rng = np.random.default_rng(3)
-    coef = np.zeros((2, 8, 4), np.float32)
-    coef[..., 0] = rng.uniform(0.2, 3.0, (2, 8))
+    n_rows = len(rows)
+    coef = np.zeros((n_rows, 8, 4), np.float32)
+    coef[..., 0] = rng.uniform(0.2, 3.0, (n_rows, 8))
     coef[..., 1] = C1
     coef[..., 2] = np.float32(1.2 * 0.75) / np.float32(31.0)
     want_s, want_b = jsegsum.blockdense_scores(
@@ -121,7 +158,17 @@ def test_blockdense_scores_twin_matches_pallas(algo, use_mask):
                                rtol=RTOL, atol=0)
     np.testing.assert_array_equal(got_b.numpy().view(np.uint32),
                                   np.asarray(want_b))
-    assert (np.asarray(want_s) > 0).sum() > 1000
+    want_s = np.asarray(want_s)
+    assert (want_s > 0).sum() > 1000
+    if case == "rows_apart":
+        for r, blk in enumerate((0, 1, 2, 3)):
+            outside = np.ones(S, bool)
+            outside[1024 * blk: 1024 * (blk + 1)] = False
+            assert (want_s[r, ~outside] > 0).any()
+            assert not want_s[r, outside].any()
+        assert not want_s[4].any() and not got_b[4].any()
+    if case == "full_block" and use_mask:
+        assert (np.asarray(want_b)[0, 2048:3072] & 1).all()
 
 
 def test_blockdense_scores_twin_sets_bit_31():

@@ -412,3 +412,172 @@ def test_north_phase_rehearsal(monkeypatch):
     assert out["widest"]["pf"]["qs"] > 0 and out["widest"]["bd"]["q"] > 0
     line = out["bench"]["line"]
     assert line["detail"]["docs"] == 3000 and line["value"] > 0
+
+
+def _host_times(fn, runs, reps=1, flush=None):
+    """chip_smoke.cuda_times on the host's clock (no card here)."""
+    import time
+
+    out = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out.append((time.perf_counter() - t0) * 1e3 / reps)
+    return out
+
+
+def test_occupied_blocks_counts_blocks_with_a_posting():
+    bounds = torch.zeros((2, 2, 5), dtype=torch.int32)
+    bounds[0, 0] = torch.tensor([0, 0, 3, 3, 3])      # block 1
+    bounds[1, 1] = torch.tensor([5, 5, 5, 5, 9])      # block 3
+    bounds[1, 0] = torch.tensor([2, 2, 5, 5, 5])      # block 1 again
+    assert chip_smoke.occupied_blocks(bounds) == 2
+    assert chip_smoke.occupied_blocks(bounds[:, :0]) == 0
+    # Per-slot columns only in the 2 occupied blocks: 8 B x 1024 each.
+    assert chip_smoke.segsum_bytes(bounds, 4096, 7, 2) == (
+        8 * 2 * 4096 + 8 * 7 + 8 * 1024 * 2 + 4 * 20 + 16 * 4)
+
+
+def test_distinct_postings_counts_shared_ranges_once():
+    """A term several rows share is read once: the bound counts the
+    union of the (row, term) ranges, not their sum."""
+    bounds = torch.zeros((3, 2, 3), dtype=torch.int32)
+    bounds[0, 0] = torch.tensor([0, 4, 10])     # term A: postings 0-9
+    bounds[1, 1] = torch.tensor([0, 4, 10])     # A again, another row
+    bounds[2, 0] = torch.tensor([20, 20, 26])   # term B: 20-25
+    bounds[2, 1] = torch.tensor([8, 12, 22])    # overlaps A and B
+    assert chip_smoke.distinct_postings(bounds) == 26
+    assert chip_smoke.distinct_postings(bounds[:, :1]) == 16
+    assert chip_smoke.distinct_postings(bounds[:, :0]) == 0
+    assert chip_smoke.distinct_postings(torch.zeros_like(bounds)) == 0
+    b = chip_smoke.segsum_bound(bounds, 2048)
+    assert (b["postings"], b["distinct_postings"],
+            b["occupied_blocks"]) == (10 + 10 + 6 + 14, 26, 2)
+    assert b["bound_ms"] == pytest.approx(chip_smoke.segsum_bytes(
+        bounds, 2048, 26, 2) / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+SMALL_SEGSUM_CASES = {
+    "1m": {"rows": 16, "slots": 1 << 14, "docs": 16_000, "vocab": 6000,
+           "postings": 640_000, "dense": 20, "mean_len": 40},
+    "tier": {"rows": 7, "slots": 64 << 10, "docs": 60_000, "vocab": 6000,
+             "postings": 600_000, "dense": 20, "mean_len": 60},
+    "heavy": {"rows": 7, "slots": 9 << 10, "docs": 9000, "heavy": 8,
+              "heavy_df": 1000, "mean_len": 60},
+}
+
+
+@pytest.mark.parametrize("case", ["1m", "tier", "heavy"])
+def test_segsum_cases_rehearsal(case, monkeypatch):
+    """chip_smoke.py's synthetic segsum launches (segsum_synthetic,
+    segsum_case) at a small S on the CPU, the kernel's wrapper taking
+    its twin: exact, the shape, postings, distinct postings and occupied
+    blocks counted, the bound over the distinct postings and the
+    occupied blocks' columns, a store-floor time;
+    the heavy case's rows hold every heavy term in every block."""
+    monkeypatch.setattr(chip_smoke, "SEGSUM_CASES", SMALL_SEGSUM_CASES)
+    monkeypatch.setattr(chip_smoke, "cuda_times", _host_times)
+    monkeypatch.setattr(chip_smoke, "KERNEL_REPS", 1)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
+    c = SMALL_SEGSUM_CASES[case]
+    args, facts = chip_smoke.segsum_synthetic(case, device="cpu")
+    again, _ = chip_smoke.segsum_synthetic(case, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(args, again))   # seeded
+    out = chip_smoke.segsum_case(args, case)
+    bounds = args[4]
+    n_blocks = c["slots"] // 1024
+    assert out["max_abs_err"] == 0.0
+    assert out["shape"] == {"N": c["rows"], "Q": 8, "S": c["slots"]}
+    assert out["postings"] == int((bounds[:, :, -1] - bounds[:, :, 0]).sum())
+    read = set()
+    for lo, hi in zip(bounds[:, :, 0].flatten().tolist(),
+                      bounds[:, :, -1].flatten().tolist()):
+        read.update(range(lo, hi))
+    assert out["distinct_postings"] == len(read) <= facts["term_postings"]
+    assert 0 < out["occupied_blocks"] <= n_blocks
+    n_bytes = chip_smoke.segsum_bytes(bounds, c["slots"],
+                                      out["distinct_postings"],
+                                      out["occupied_blocks"])
+    assert out["bound_ms"] == pytest.approx(
+        n_bytes / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    assert out["store_floor_ms"] > 0 and out["ms"] > 0
+    alive = args[3]
+    assert not alive[c["docs"]:].any() and alive[: c["docs"]].mean() > 0.9
+    if case == "heavy":
+        assert facts == {"terms": 8, "term_postings": 8 * 1000}
+        assert out["postings"] == 7 * 8 * 1000
+        assert out["distinct_postings"] == 8 * 1000
+        assert out["occupied_blocks"] == n_blocks
+        assert bool((bounds[:, :, 1:] > bounds[:, :, :-1]).all())
+    else:
+        # Rows as bd_queries': one or two kernel terms, the rest zero.
+        live = (bounds[:, :, -1] > bounds[:, :, 0]).sum(1)
+        assert bool((live <= 2).all()) and int(live.sum()) > 0
+        assert not bounds[:, 3:].any()
+
+
+def _segsum_variants():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(chip_smoke.__file__), "tools",
+                        "segsum_variants.py")
+    spec = importlib.util.spec_from_file_location("segsum_variants", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_segsum_variants_sources(tmp_path):
+    """tools/segsum_variants.py's specs: ``base`` is csrc/segsum.cu as it
+    is, each tunable constant it documents is declared once there, and
+    ``@PATH`` reads another source whole."""
+    from nxsearch_tpu_torch.ops import kernels
+
+    sv = _segsum_variants()
+    with open(f"{kernels.CSRC_DIR}/segsum.cu") as f:
+        text = f.read()
+    assert sv.variant_source("base") == ("base", text)
+    for name in ("kThreads", "kCtasPerSm", "kTileRows", "kPairsPerThread",
+                 "kListPerThread", "kTermRegs"):
+        label, out = sv.variant_source(f"{name}=3")
+        assert f"constexpr int {name} = 3;" in out and label == f"{name}=3"
+    other = tmp_path / "segsum.cu"
+    other.write_text("// another commit's kernel\n")
+    assert sv.variant_source(f"@{other}") == (
+        f"@{other}", "// another commit's kernel\n")
+
+
+def test_segsum_variants_seed_sweep(monkeypatch, capsys):
+    """tools/segsum_variants.py --tier-seeds on the CPU at a small S, the
+    twin standing in for a built variant: a line per seed with its
+    bound and ratio, then the variant's spread over the seeds."""
+    import json
+
+    from nxsearch_tpu_torch.ops import kernels
+
+    sv = _segsum_variants()
+    monkeypatch.setattr(chip_smoke, "SEGSUM_CASES", SMALL_SEGSUM_CASES)
+    monkeypatch.setattr(chip_smoke, "cuda_times", _host_times)
+    monkeypatch.setattr(chip_smoke, "KERNEL_REPS", 1)
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "card, 1 W")
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
+
+    def twin(*args):
+        return kernels.blockdense_scores_ref(*args, algo=0, use_mask=True)
+
+    sv.seed_sweep([("twin", "")], [twin], 3, device="cpu")
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "card, 1 W" and len(lines) == 5
+    seeds = [json.loads(line) for line in lines[1:4]]
+    assert [x["seed"] for x in seeds] == [45, 46, 47]
+    for x in seeds:
+        assert x["ratio"]["twin"] == pytest.approx(
+            x["bound_ms"] / x["ms"]["twin"])
+        assert x["distinct_postings"] <= x["postings"]
+    last = json.loads(lines[4])
+    ms = sorted(x["ms"]["twin"] for x in seeds)
+    assert last["seeds"] == 3 and last["variant"] == "twin"
+    assert (last["ms"]["min"], last["ms"]["median"],
+            last["ms"]["max"]) == (ms[0], ms[1], ms[2])

@@ -307,19 +307,64 @@ def _segsum_inputs(seed, n_queries, n_terms, n_slots):
             for a in (ps, pf, dl, alive, bounds, coef)]
 
 
-@pytest.mark.parametrize("n_queries,n_terms,n_slots,algo,use_mask", [
-    (64, 8, 1 << 16, 0, True),     # a bd chunk's shape, narrower index
-    (3, 8, 4096, 1, True),         # TF-IDF
-    (5, 8, 8192, 0, False),        # no presence bits
-    (2, 32, 2048, 0, True),        # bit 31: the sign of the int32 word
-    (1, 1, 1024, 0, True),         # one term, one block
+def _full_block_inputs(args, n_slots):
+    """``args`` with one more term whose 1024 postings fill block 1,
+    held by term 0 of row 0 alone; every other range empty."""
+    ps, pf, dl, alive, bounds, coef = args
+    start = ps.shape[0]
+    ps = torch.cat([ps, torch.arange(1024, 2048, dtype=torch.int32,
+                                     device=ps.device),
+                    torch.zeros(1024, dtype=torch.int32, device=ps.device)])
+    pf = torch.cat([pf, torch.linspace(0.5, 2.0, 1024, device=pf.device),
+                    torch.zeros(1024, device=pf.device)])
+    bounds = torch.zeros_like(bounds)
+    edges = torch.arange(n_slots // 1024 + 1, device=ps.device)
+    bounds[0, 0] = torch.where(edges <= 1, start, start + 1024)
+    return ps, pf, dl, alive, bounds, coef
+
+
+@pytest.mark.parametrize("n_queries,n_terms,n_slots,algo,use_mask,case", [
+    pytest.param(64, 8, 1 << 16, 0, True, "random",
+                 id="64-8-65536-0-True"),    # a bd chunk, narrower index
+    pytest.param(3, 8, 4096, 1, True, "random",
+                 id="3-8-4096-1-True"),      # TF-IDF
+    pytest.param(5, 8, 8192, 0, False, "random",
+                 id="5-8-8192-0-False"),     # no presence bits
+    pytest.param(2, 32, 2048, 0, True, "random",
+                 id="2-32-2048-0-True"),     # bit 31: the int32 sign
+    pytest.param(1, 1, 1024, 0, True, "random",
+                 id="1-1-1024-0-True"),      # one term, one block
+    # Fewer blocks than the persistent grid's CTAs, and rows past one
+    # tile's 64 (a second, partial row chunk).
+    pytest.param(70, 8, 5 << 10, 0, True, "random", id="small-grid"),
+    # A block count that no grid size divides: CTAs walk unequal tiles.
+    pytest.param(7, 8, 1031 << 10, 0, True, "random", id="ragged-tiles"),
+    pytest.param(64, 8, 1 << 20, 0, True, "random",
+                 id="1m-launch"),            # the 1M tier's launch
+    pytest.param(7, 8, 9216 << 10, 0, True, "random",
+                 id="tier-launch"),          # the north-star tier's
+    pytest.param(4, 8, 8192, 0, True, "empty", id="all-empty"),
+    pytest.param(3, 8, 4096, 0, True, "full_block", id="full-block"),
+    # 32 terms: more than one posting round holds, 16-row tiles.
+    pytest.param(64, 32, 1 << 16, 0, True, "random", id="q32-chunks"),
+    pytest.param(6, 8, 8192, 0, True, "dead", id="alive-zero"),
+    pytest.param(64, 8, 1 << 20, 1, False, "random",
+                 id="1m-tfidf-no-mask"),
 ])
 def test_segsum_kernel_matches_twin(n_queries, n_terms, n_slots, algo,
-                                    use_mask):
+                                    use_mask, case):
     """Bit-for-bit equality of scores and presence bits, empty and
-    zeroed ranges included."""
+    zeroed ranges included; ``case``: random ranges, every range empty,
+    one row's full 1024-posting block beside empty rows, or alive 0 at
+    half the slots where postings land."""
     _need_card()
     args = _segsum_inputs(n_queries + n_terms, n_queries, n_terms, n_slots)
+    if case == "empty":
+        args[4].zero_()
+    elif case == "full_block":
+        args = _full_block_inputs(args, n_slots)
+    elif case == "dead":
+        args[3][args[0][::2].long()] = 0.0
     before = kernels.SEGSUM.launches
     got_s, got_b = kernels.blockdense_scores(*args, algo=algo,
                                              use_mask=use_mask)
@@ -329,7 +374,15 @@ def test_segsum_kernel_matches_twin(n_queries, n_terms, n_slots, algo,
     assert kernels.SEGSUM.launches == before + 1
     assert torch.equal(got_s, want_s)
     assert torch.equal(got_b, want_b)
+    if case == "empty":
+        assert not want_s.any() and not want_b.any()
+        return
     assert (want_s > 0).any()
+    if case == "full_block":
+        assert bool((want_b[0, 1024:2048] == 1).all())
+        assert not want_b[0, :1024].any() and not want_b[1:].any()
+    if case == "dead":
+        assert bool(((want_s == 0) & (want_b != 0)).any())
     if n_terms == 32:
         assert (want_b < 0).any()          # bit 31 set somewhere
 
@@ -371,6 +424,17 @@ def test_segsum_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="multiple of 1024"):
         kernels.blockdense_scores(ps, pf, dl[:1000], alive[:1000], bounds,
                                   coef, algo=0, use_mask=True)
+    # cp.async stages doc lengths and alive factors 16 bytes at a time;
+    # coef is read as float4.
+    off = torch.zeros(2048 + 1, device="cuda")[1:]
+    with pytest.raises(ValueError, match="doc_len must be 16-byte"):
+        kernels.blockdense_scores(ps, pf, off, alive, bounds, coef,
+                                  algo=0, use_mask=True)
+    with pytest.raises(ValueError, match="at most 512"):
+        wide = torch.zeros((1, 513, 3), dtype=torch.int32, device="cuda")
+        kernels.blockdense_scores(ps, pf, dl, alive, wide,
+                                  torch.zeros((1, 513, 4), device="cuda"),
+                                  algo=0, use_mask=True)
 
 
 def _zipf_pair(tmp_path, vocab=6000):
