@@ -48,10 +48,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from ..utils.log import get_logger
+from ..utils.trace import phase
 from .hostindex import HostIndex
-
-_log = get_logger(__name__)
 
 
 def _bucket(n: int, minimum: int) -> int:
@@ -399,23 +397,28 @@ class DeviceIndex:
                 pass
 
     def _full_rebuild(self) -> bool:
-        cached = self._load_csr_cache()
-        if cached is not None:
-            return self._rebuild_from_cache(cached)
+        """Build the snapshot: one ``snapshot.build`` span, a child span
+        a step (utils/trace.phase)."""
+        with phase("snapshot.build", slots=self.host.doc_ids.n) as span:
+            cached = self._load_csr_cache()
+            span.set(from_cache=cached is not None)
+            if cached is not None:
+                return self._rebuild_from_cache(cached)
+            return self._build_from_host()
+
+    def _build_from_host(self) -> bool:
         # Device slots ascend by document length (stable), as in the
         # reference; build_csr emits postings in (term, device slot)
         # order directly.
-        t_phase = time.monotonic()
-        n_slots_host = self.host.doc_ids.n
-        dl_host = np.asarray(self.host.doc_len.view()[:n_slots_host],
-                             dtype=np.float32)
-        perm = np.argsort(dl_host, kind="stable").astype(np.int64)
-        inv = np.empty(n_slots_host, dtype=np.int64)
-        inv[perm] = np.arange(n_slots_host)
-
-        snap = self.host.build_csr(slot_remap=inv)
-        _log.debug("rebuild: build_csr %.1fs (%d postings)",
-                   time.monotonic() - t_phase, len(snap["postings_slot"]))
+        with phase("snapshot.build_csr") as span:
+            n_slots_host = self.host.doc_ids.n
+            dl_host = np.asarray(self.host.doc_len.view()[:n_slots_host],
+                                 dtype=np.float32)
+            perm = np.argsort(dl_host, kind="stable").astype(np.int64)
+            inv = np.empty(n_slots_host, dtype=np.int64)
+            inv[perm] = np.arange(n_slots_host)
+            snap = self.host.build_csr(slot_remap=inv)
+            span.set(postings=len(snap["postings_slot"]))
         n_post = len(snap["postings_slot"])
         s_pad = _pad_size(n_slots_host, self._MIN_SLOTS)
         p_pad = _pad_size(n_post, self._MIN_POSTINGS)
@@ -433,8 +436,9 @@ class DeviceIndex:
         dlen = np.ones(s_pad, dtype=np.float32)
         dlen[:n_slots_host] = snap["doc_len"][perm]
         if n_post >= self.CSR_CACHE_MIN_POSTINGS:
-            self._save_csr_cache(snap["term_starts"], slot_real, tf16,
-                                 ltf_real, perm)
+            with phase("snapshot.csr_cache"):
+                self._save_csr_cache(snap["term_starts"], slot_real, tf16,
+                                     ltf_real, perm)
 
         return self._finish_rebuild(
             term_starts=snap["term_starts"], counts=counts,
@@ -478,8 +482,6 @@ class DeviceIndex:
         ``slot_real`` int32[n_post] plus ``tf16`` uint16 counts (ltf is
         computed on the device as f32 log(tf + 1), the reference's
         device formula) or ``ltf_real`` float32."""
-        t_phase = time.monotonic()
-        dev = self.device
         self.term_starts = term_starts
         self.base_nterms = len(term_starts) - 1
         # Guard rows past the CSR postings keep every sliced window
@@ -508,12 +510,51 @@ class DeviceIndex:
         n_round = -(-tail_min // chunk) * chunk
         guard_len = n_round - p_pad - prefix_len
         upload_hi = min(n_round, -(-p_pad // chunk) * chunk)
+        with phase("snapshot.pack", rows=n_round, postings=n_post):
+            pack, dlen_dev, slot_exact = self._upload_pack(
+                n_round, upload_hi, slot_real, tf16, ltf_real, dlen,
+                n_post=n_post, s_pad=s_pad, p_pad=p_pad)
 
-        # Pack rows: CSR postings, then zero rows up to p_pad, then rows
-        # carrying the s_pad sentinel slot as far as the reference's
-        # chunked upload writes them (beyond, zero rows); the prefix
-        # build overwrites the region.
-        rows = n_round
+        # The region's rows carry f32 slots; only impact-prefix plans
+        # read them, and search._prefix_mode gates those below 2**24.
+        with phase("snapshot.prefix", wide_terms=len(wide)):
+            self._build_prefix(pack, wide, term_starts, counts, cap=cap,
+                               p_pad=p_pad, adl_build=float(
+                                   (token_count // doc_count) if doc_count
+                                   else 1.0))
+        with phase("snapshot.dense_rows") as span:
+            heavy = self._build_dense_rows(pack, slot_exact, term_starts,
+                                           counts, s_pad)
+            span.set(rows=len(heavy))
+
+        self.postings_pack = pack
+        self._guard_len = guard_len
+        self.doc_len = dlen_dev
+        self.slot_perm = perm
+        self._alive_cached = doc_alive
+        self._alive_all = bool(self._alive_cached.all())
+        with phase("snapshot.alive"):
+            self.alive_mask = self._put(
+                _pack_alive(self._alive_cached[perm], s_pad))
+        self.n_slots = s_pad
+        self.n_postings = p_pad
+        self._arrival_mark = self.host.p_term.n
+        self._slots_mark = self.host.doc_ids.n
+        self._removed_since_base = 0
+        self._reset_derived()
+        self._slot_exact = slot_exact
+        self.generation = generation
+        return True
+
+    def _upload_pack(self, rows, upload_hi, slot_real, tf16, ltf_real,
+                     dlen, *, n_post, s_pad, p_pad):
+        """The pack on the device, uploaded in chunks: CSR postings, then
+        zero rows up to p_pad, then rows carrying the s_pad sentinel slot
+        as far as the reference's chunked upload writes them (beyond,
+        zero rows); the prefix build overwrites the region.  Returns the
+        pack, the device doc lengths and the exact slot column (None
+        below 2**24 slots)."""
+        dev = self.device
         pack = torch.zeros((rows, 3), dtype=torch.float32, device=dev)
         dlen_dev = self._put(dlen)
         # From 2**24 slots the pack's f32 slots round odd slots onto
@@ -544,18 +585,15 @@ class DeviceIndex:
                 slot_d, max=s_pad - 1).to(torch.int64)]
             if slot_exact is not None and off < p_pad:
                 slot_exact[off: min(hi, p_pad)] = slot_d[: p_pad - off]
-        _log.debug("rebuild: pack build %.1fs", time.monotonic() - t_phase)
+        return pack, dlen_dev, slot_exact
 
-        # The region's rows carry f32 slots; only impact-prefix plans
-        # read them, and search._prefix_mode gates those below 2**24.
-        self._build_prefix(pack, wide, term_starts, counts, cap=cap,
-                           p_pad=p_pad, adl_build=float(
-                               (token_count // doc_count) if doc_count
-                               else 1.0))
-
-        # Dense rows for the heaviest terms (device-slot indexed),
-        # scattered from the pack's ltf by the exact slots: each (term,
-        # slot) occurs once, so the scatter-add is an exact copy.
+    def _build_dense_rows(self, pack, slot_exact, term_starts, counts,
+                          s_pad: int) -> np.ndarray:
+        """Dense rows for the heaviest terms (device-slot indexed),
+        scattered from the pack's ltf by the exact slots: each (term,
+        slot) occurs once, so the scatter-add is an exact copy.  Returns
+        the terms that got a row."""
+        dev = self.device
         heavy = np.nonzero(counts > s_pad // self.DENSE_DF_DIV)[0]
         row_cap = min(self.MAX_DENSE_ROWS,
                       max(int(self.DENSE_ROWS_MAX_BYTES // (4 * s_pad)), 1))
@@ -574,26 +612,7 @@ class DeviceIndex:
                      else pack[s: s + ln, 0]).to(torch.int64)
             dense.index_add_(0, r * s_pad + slots, pack[s: s + ln, 1])
         self.dense_rows = dense.reshape(-1, s_pad)
-
-        self.postings_pack = pack
-        self._guard_len = guard_len
-        self.doc_len = dlen_dev
-        self.slot_perm = perm
-        self._alive_cached = doc_alive
-        self._alive_all = bool(self._alive_cached.all())
-        self.alive_mask = self._put(
-            _pack_alive(self._alive_cached[perm], s_pad))
-        self.n_slots = s_pad
-        self.n_postings = p_pad
-        self._arrival_mark = self.host.p_term.n
-        self._slots_mark = self.host.doc_ids.n
-        self._removed_since_base = 0
-        self._reset_derived()
-        self._slot_exact = slot_exact
-        self.generation = generation
-        _log.debug("rebuild: total %.1fs (%d dense rows)",
-                   time.monotonic() - t_phase, len(heavy))
-        return True
+        return heavy
 
     def _build_prefix(self, pack, wide, term_starts, counts, *, cap: int,
                       p_pad: int, adl_build: float) -> None:
@@ -607,7 +626,7 @@ class DeviceIndex:
         rows; ``prefix_stats`` records the count, bytes and seconds."""
         from ..ops.scoring import BM25_B, BM25_K1
 
-        t0 = time.monotonic()
+        t0 = time.perf_counter()
         lookup = np.full(self.base_nterms + 1, -1, dtype=np.int32)
         tails = np.zeros(self.base_nterms + 1, dtype=np.float32)
         plens = np.zeros(self.base_nterms + 1, dtype=np.int32)
@@ -652,10 +671,7 @@ class DeviceIndex:
             plens[wide + 1] = cuts_w
         self.prefix_stats = {"wide_terms": int(len(wide)),
                              "bytes": int(len(wide) * cap * 12),
-                             "seconds": time.monotonic() - t0}
-        _log.debug("rebuild: impact prefixes %.3fs (%d wide terms, %d "
-                   "bytes)", self.prefix_stats["seconds"], len(wide),
-                   self.prefix_stats["bytes"])
+                             "seconds": time.perf_counter() - t0}
 
     @classmethod
     def from_arrays(cls, host: HostIndex, arrays: dict,

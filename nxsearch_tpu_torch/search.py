@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import functools
 import os
-import threading
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -64,6 +63,10 @@ from .query.parser import parse_query
 from .query.prepare import Query, prepare
 from .resp import Response
 from .text.tokenizer import Token
+# EXEC_STATS: the executors' route counters (utils/trace.py lists them).
+from .utils.trace import COUNTERS as EXEC_STATS
+from .utils.trace import count as _count
+from .utils.trace import phase
 
 # Shared AST stand-in for batched fast-path queries (pure implicit-OR
 # term lists resolve without an Expr tree; a lone leaf is trivially
@@ -71,25 +74,6 @@ from .text.tokenizer import Token
 _PURE_OR_ROOT = Expr.leaf("<batched-pure-or>")
 
 _ALGO_BY_NAME = {"BM25": ALGO_BM25, "TF-IDF": ALGO_TFIDF}
-
-# Executor-path counters (observability; reset freely).  Keys:
-# prefix / prefix_exact / sliced / sliced_head / blockdense /
-# candidate / dense count QUERIES routed through each path,
-# prefix_fallback the uncertified prefix rows re-run classically and
-# prefix_spec_used those a speculative twin answered, sliced_masked /
-# sliced_masked_rows the masked sliced rows and those of them on the
-# masked dense-row hybrid; coalesced / coalesced_pf count rows merged
-# into widened groups; sharded_prefix / sharded_sliced /
-# sharded_fallback count a mesh's rows by shard body.
-EXEC_STATS: dict[str, int] = {}
-# Request threads of the service search concurrently: the counters'
-# read-modify-write takes this lock, so no count is lost.
-_STATS_LOCK = threading.Lock()
-
-
-def _count(key: str, n: int = 1) -> None:
-    with _STATS_LOCK:
-        EXEC_STATS[key] = EXEC_STATS.get(key, 0) + n
 
 
 def _count_sliced(n: int, t_head: int, use_mask: bool,
@@ -1718,8 +1702,6 @@ class _PendingBatch:
     responses: list
     pending: list          # (members, packed device result, tag)
     fetch: tuple           # (host tensor, copy-done event, shapes)
-    t_dispatch: float
-    t_submitted: float
     # The prepared queries: uncertified prefix rows re-plan classically
     # from them at collect time.
     queries: list = None
@@ -1960,185 +1942,186 @@ def _group_rows_cap(dev, key: tuple) -> int:
 def _submit_plans(dev, plans: list, queries: list[Query],
                   sp: SearchParams) -> _PendingBatch:
     """Group and dispatch already-built plans (pf, sl, bd, candidate and
-    dense routes)."""
+    dense routes): group, chunk, pack, upload and launch, and start the
+    batch's copy; the ``batch.submit`` span, with the batch's rows and
+    dispatch groups."""
     from .ops.executor import pack_sliced_group, sliced_topk_packed
 
-    responses: list[Optional[Response]] = [
-        Response() if p is None else None for p in plans]
-    k = _bucket(min(sp.limit, dev.n_slots), _MIN_K)
-    groups: dict[tuple, list[int]] = {}
-    for i, plan in enumerate(plans):
-        if plan is not None:
-            groups.setdefault(_group_key(plan, dev), []).append(i)
+    with phase("batch.submit", rows=len(plans)) as span:
+        responses: list[Optional[Response]] = [
+            Response() if p is None else None for p in plans]
+        k = _bucket(min(sp.limit, dev.n_slots), _MIN_K)
+        groups: dict[tuple, list[int]] = {}
+        for i, plan in enumerate(plans):
+            if plan is not None:
+                groups.setdefault(_group_key(plan, dev), []).append(i)
 
-    groups = _coalesce_sliced_groups(groups, plans)
-    groups = _coalesce_prefix_groups(groups, plans)
+        groups = _coalesce_sliced_groups(groups, plans)
+        groups = _coalesce_prefix_groups(groups, plans)
 
-    chunked: list[tuple[tuple, list[int]]] = []
-    for key, members in groups.items():
-        max_n = _group_rows_cap(dev, key)
-        for at in range(0, len(members), max_n):
-            chunked.append((key, members[at: at + max_n]))
+        chunked: list[tuple[tuple, list[int]]] = []
+        for key, members in groups.items():
+            max_n = _group_rows_cap(dev, key)
+            for at in range(0, len(members), max_n):
+                chunked.append((key, members[at: at + max_n]))
 
-    t_dispatch = time.perf_counter()
-    pending = []
-    sharded = hasattr(dev, "mesh")
-    marks = [] if os.environ.get("NXS_PROFILE_GROUPS") else None
-    for key, members in chunked:
-        n = len(members)
-        if marks is not None:         # after the previous group's launch
-            marks.append(_group_mark(dev))
-        if sharded:                      # "spf", "ssl" or batch_key
-            # A batch_key group's rows pad no further than its row cap,
-            # as on one device: its [rows, Ss] planes per shard stay
-            # under the cap (8 padded rows of a 2**25-slot shard were 4x
-            # it).
-            packed = _dispatch_mesh(
-                dev, key, [plans[i] for i in members], sp, k,
-                _row_pad(n, key[1], key[2], pf=True) if key[0] == "spf"
-                else _row_pad(n) if key[0] == "ssl"
-                else min(_row_pad(n), _group_rows_cap(dev, key)))
-            pending.append((members, packed, "mesh"))
-            continue
-        if key[0] == "pf":
-            _, qs_pad, T_g, r_pad, n_run_g = key
-            n_pad = _row_pad(n, qs_pad, T_g, pf=True)
+        pending = []
+        sharded = hasattr(dev, "mesh")
+        marks = [] if os.environ.get("NXS_PROFILE_GROUPS") else None
+        for key, members in chunked:
+            n = len(members)
+            if marks is not None:         # after the previous group's launch
+                marks.append(_group_mark(dev))
+            if sharded:                      # "spf", "ssl" or batch_key
+                # A batch_key group's rows pad no further than its row cap,
+                # as on one device: its [rows, Ss] planes per shard stay
+                # under the cap (8 padded rows of a 2**25-slot shard were 4x
+                # it).
+                packed = _dispatch_mesh(
+                    dev, key, [plans[i] for i in members], sp, k,
+                    _row_pad(n, key[1], key[2], pf=True) if key[0] == "spf"
+                    else _row_pad(n) if key[0] == "ssl"
+                    else min(_row_pad(n), _group_rows_cap(dev, key)))
+                pending.append((members, packed, "mesh"))
+                continue
+            if key[0] == "pf":
+                _, qs_pad, T_g, r_pad, n_run_g = key
+                n_pad = _row_pad(n, qs_pad, T_g, pf=True)
+                sl_start = np.zeros((n_pad, qs_pad), dtype=np.int32)
+                sl_len = np.zeros((n_pad, qs_pad), dtype=np.int32)
+                sl_idf = np.zeros((n_pad, qs_pad), dtype=np.float32)
+                pf_bits = np.zeros((n_pad, qs_pad), dtype=np.int32)
+                pf_tail = np.zeros((n_pad, r_pad), dtype=np.float32)
+                pf_start = np.zeros((n_pad, r_pad), dtype=np.int32)
+                pf_len = np.zeros((n_pad, r_pad), dtype=np.int32)
+                pf_idf = np.zeros((n_pad, r_pad), dtype=np.float32)
+                for row, i in enumerate(members):
+                    p = plans[i]
+                    w = len(p.sl_start)       # coalesced rows re-pad
+                    r = len(p.pf_tail)
+                    sl_start[row, :w] = p.sl_start
+                    sl_len[row, :w] = p.sl_len
+                    sl_idf[row, :w] = p.sl_idf
+                    pf_bits[row, :w] = p.pf_bits
+                    pf_tail[row, :r] = p.pf_tail
+                    pf_start[row, :r] = p.pf_start
+                    pf_len[row, :r] = p.pf_len
+                    pf_idf[row, :r] = p.pf_idf
+                packed = _dispatch_prefix(
+                    dev, sl_start, sl_len, sl_idf, pf_bits, pf_tail, pf_start,
+                    pf_len, pf_idf, sp=sp, k=k, n_run=n_run_g, T=T_g)
+                _count("prefix", n)
+                pending.append((members, packed, "prefix"))
+                continue
+            if key[0] == "bd":
+                packed = _dispatch_blockdense(
+                    dev, [plans[i] for i in members], sp, k, _row_pad(n))
+                _count("blockdense", n)
+                pending.append((members, packed, "bd"))
+                continue
+            if not isinstance(key[0], str):
+                # Rows pad on the grid but never past the group's row cap,
+                # which bounds its [rows, budget] candidate planes and its
+                # [rows, S_pad] dense plane (the cap falls below the grid's
+                # floor of 8 rows for dense groups past 2**23 slots and for
+                # candidate budgets of 2**24).
+                packed = _dispatch_plain(
+                    dev, [plans[i] for i in members], sp, k,
+                    min(_row_pad(n), _group_rows_cap(dev, key)))
+                _count("dense" if key[3] else "candidate", n)
+                pending.append((members, packed, "plain"))
+                continue
+            # Group params come from the KEY: coalesced groups carry
+            # widened maxima there, and member rows re-pad below.
+            (_, qs_pad, T_g, L_key, use_mask_g, depth_g, single_g, use_rows_g,
+             t_head, n_run_g) = key
+            prog_len = L_key or 1
+            n_pad = _row_pad(n, qs_pad, T_g)
             sl_start = np.zeros((n_pad, qs_pad), dtype=np.int32)
             sl_len = np.zeros((n_pad, qs_pad), dtype=np.int32)
             sl_idf = np.zeros((n_pad, qs_pad), dtype=np.float32)
-            pf_bits = np.zeros((n_pad, qs_pad), dtype=np.int32)
-            pf_tail = np.zeros((n_pad, r_pad), dtype=np.float32)
-            pf_start = np.zeros((n_pad, r_pad), dtype=np.int32)
-            pf_len = np.zeros((n_pad, r_pad), dtype=np.int32)
-            pf_idf = np.zeros((n_pad, r_pad), dtype=np.float32)
+            sl_rows = np.zeros((n_pad, qs_pad), dtype=np.int32) \
+                if (n_run_g and use_mask_g) else None
+            if use_mask_g:
+                prog_ops = np.zeros((n_pad, prog_len), dtype=np.int32)
+                prog_args = np.zeros((n_pad, prog_len), dtype=np.int32)
+            if use_rows_g:
+                d_row = np.full((n_pad, _MAX_DENSE_PER_QUERY), -1,
+                                dtype=np.int32)
+                d_idf = np.zeros((n_pad, _MAX_DENSE_PER_QUERY),
+                                 dtype=np.float32)
+            masked_rows = bool(use_mask_g and use_rows_g)
+            if masked_rows:
+                d_bit = np.full((n_pad, _MAX_DENSE_PER_QUERY), -1,
+                                dtype=np.int32)
+                d_pass = np.zeros((n_pad, 1 << _MAX_DENSE_PER_QUERY),
+                                  dtype=np.bool_)
+            if t_head:
+                h_start = np.zeros(n_pad, dtype=np.int32)
+                h_len = np.zeros(n_pad, dtype=np.int32)
+                h_idf = np.zeros(n_pad, dtype=np.float32)
+                h_row = np.zeros(n_pad, dtype=np.int32)
+                h_pass = np.zeros(n_pad, dtype=np.bool_)
             for row, i in enumerate(members):
                 p = plans[i]
-                w = len(p.sl_start)       # coalesced rows re-pad
-                r = len(p.pf_tail)
+                w = len(p.sl_start)
                 sl_start[row, :w] = p.sl_start
                 sl_len[row, :w] = p.sl_len
                 sl_idf[row, :w] = p.sl_idf
-                pf_bits[row, :w] = p.pf_bits
-                pf_tail[row, :r] = p.pf_tail
-                pf_start[row, :r] = p.pf_start
-                pf_len[row, :r] = p.pf_len
-                pf_idf[row, :r] = p.pf_idf
-            packed = _dispatch_prefix(
-                dev, sl_start, sl_len, sl_idf, pf_bits, pf_tail, pf_start,
-                pf_len, pf_idf, sp=sp, k=k, n_run=n_run_g, T=T_g)
-            _count("prefix", n)
-            pending.append((members, packed, "prefix"))
-            continue
-        if key[0] == "bd":
-            packed = _dispatch_blockdense(
-                dev, [plans[i] for i in members], sp, k, _row_pad(n))
-            _count("blockdense", n)
-            pending.append((members, packed, "bd"))
-            continue
-        if not isinstance(key[0], str):
-            # Rows pad on the grid but never past the group's row cap,
-            # which bounds its [rows, budget] candidate planes and its
-            # [rows, S_pad] dense plane (the cap falls below the grid's
-            # floor of 8 rows for dense groups past 2**23 slots and for
-            # candidate budgets of 2**24).
-            packed = _dispatch_plain(
-                dev, [plans[i] for i in members], sp, k,
-                min(_row_pad(n), _group_rows_cap(dev, key)))
-            _count("dense" if key[3] else "candidate", n)
-            pending.append((members, packed, "plain"))
-            continue
-        # Group params come from the KEY: coalesced groups carry
-        # widened maxima there, and member rows re-pad below.
-        (_, qs_pad, T_g, L_key, use_mask_g, depth_g, single_g, use_rows_g,
-         t_head, n_run_g) = key
-        prog_len = L_key or 1
-        n_pad = _row_pad(n, qs_pad, T_g)
-        sl_start = np.zeros((n_pad, qs_pad), dtype=np.int32)
-        sl_len = np.zeros((n_pad, qs_pad), dtype=np.int32)
-        sl_idf = np.zeros((n_pad, qs_pad), dtype=np.float32)
-        sl_rows = np.zeros((n_pad, qs_pad), dtype=np.int32) \
-            if (n_run_g and use_mask_g) else None
-        if use_mask_g:
-            prog_ops = np.zeros((n_pad, prog_len), dtype=np.int32)
-            prog_args = np.zeros((n_pad, prog_len), dtype=np.int32)
-        if use_rows_g:
-            d_row = np.full((n_pad, _MAX_DENSE_PER_QUERY), -1,
-                            dtype=np.int32)
-            d_idf = np.zeros((n_pad, _MAX_DENSE_PER_QUERY),
-                             dtype=np.float32)
-        masked_rows = bool(use_mask_g and use_rows_g)
-        if masked_rows:
-            d_bit = np.full((n_pad, _MAX_DENSE_PER_QUERY), -1,
-                            dtype=np.int32)
-            d_pass = np.zeros((n_pad, 1 << _MAX_DENSE_PER_QUERY),
-                              dtype=np.bool_)
-        if t_head:
-            h_start = np.zeros(n_pad, dtype=np.int32)
-            h_len = np.zeros(n_pad, dtype=np.int32)
-            h_idf = np.zeros(n_pad, dtype=np.float32)
-            h_row = np.zeros(n_pad, dtype=np.int32)
-            h_pass = np.zeros(n_pad, dtype=np.bool_)
-        for row, i in enumerate(members):
-            p = plans[i]
-            w = len(p.sl_start)
-            sl_start[row, :w] = p.sl_start
-            sl_len[row, :w] = p.sl_len
-            sl_idf[row, :w] = p.sl_idf
-            if sl_rows is not None:
-                sl_rows[row, :w] = p.sl_rows
-            if use_mask_g:
-                lp = len(p.prog_ops)
-                prog_ops[row, :lp] = p.prog_ops
-                prog_args[row, :lp] = p.prog_args
-            if use_rows_g and p.d_row is not None:
-                d_row[row] = p.d_row
-                d_idf[row] = p.d_idf
-            if masked_rows:
-                d_bit[row] = p.d_qpos
-                if p.d_pass is not None:
-                    d_pass[row] = p.d_pass
-            if t_head and p.h_T:
-                h_start[row] = p.h_start
-                h_len[row] = p.h_len
-                h_idf[row] = p.h_idf
-                h_row[row] = p.h_row
-                h_pass[row] = p.h_pass
-        buf = pack_sliced_group(
-            sl_start, sl_len, sl_idf,
-            prog_ops if use_mask_g else None,
-            prog_args if use_mask_g else None,
-            d_row if use_rows_g else None,
-            d_idf if use_rows_g else None,
-            h_start if t_head else None, h_len if t_head else None,
-            h_idf if t_head else None, h_row if t_head else None,
-            h_pass if t_head else None, sl_rows,
-            d_bit if masked_rows else None,
-            d_pass if masked_rows else None)
-        packed = sliced_topk_packed(
-            dev.postings_pack, dev.alive_mask, dev.doc_len,
-            _upload(dev, buf), dev.adl_dev,
-            dev.dense_rows if use_rows_g else None,
-            qs=qs_pad, L=prog_len, D=_MAX_DENSE_PER_QUERY, T=T_g, k=k,
-            algo=sp.algo, n_slots=dev.n_slots, use_mask=use_mask_g,
-            single=single_g, alive_all=dev.alive_all,
-            use_rows=use_rows_g, depth=depth_g, T_head=t_head,
-            n_run=n_run_g)
-        _count_sliced(n, t_head, use_mask_g, use_rows_g)
-        pending.append((members, packed, "sliced"))
+                if sl_rows is not None:
+                    sl_rows[row, :w] = p.sl_rows
+                if use_mask_g:
+                    lp = len(p.prog_ops)
+                    prog_ops[row, :lp] = p.prog_ops
+                    prog_args[row, :lp] = p.prog_args
+                if use_rows_g and p.d_row is not None:
+                    d_row[row] = p.d_row
+                    d_idf[row] = p.d_idf
+                if masked_rows:
+                    d_bit[row] = p.d_qpos
+                    if p.d_pass is not None:
+                        d_pass[row] = p.d_pass
+                if t_head and p.h_T:
+                    h_start[row] = p.h_start
+                    h_len[row] = p.h_len
+                    h_idf[row] = p.h_idf
+                    h_row[row] = p.h_row
+                    h_pass[row] = p.h_pass
+            buf = pack_sliced_group(
+                sl_start, sl_len, sl_idf,
+                prog_ops if use_mask_g else None,
+                prog_args if use_mask_g else None,
+                d_row if use_rows_g else None,
+                d_idf if use_rows_g else None,
+                h_start if t_head else None, h_len if t_head else None,
+                h_idf if t_head else None, h_row if t_head else None,
+                h_pass if t_head else None, sl_rows,
+                d_bit if masked_rows else None,
+                d_pass if masked_rows else None)
+            packed = sliced_topk_packed(
+                dev.postings_pack, dev.alive_mask, dev.doc_len,
+                _upload(dev, buf), dev.adl_dev,
+                dev.dense_rows if use_rows_g else None,
+                qs=qs_pad, L=prog_len, D=_MAX_DENSE_PER_QUERY, T=T_g, k=k,
+                algo=sp.algo, n_slots=dev.n_slots, use_mask=use_mask_g,
+                single=single_g, alive_all=dev.alive_all,
+                use_rows=use_rows_g, depth=depth_g, T_head=t_head,
+                n_run=n_run_g)
+            _count_sliced(n, t_head, use_mask_g, use_rows_g)
+            pending.append((members, packed, "sliced"))
 
-    if marks is not None:
-        marks.append(_group_mark(dev))
-    if any(tag in ("bd", "plain") for _m, _p, tag in pending):
-        # A blockdense, candidate or dense group read the derived slot /
-        # ltf columns.
-        dev.drop_legacy_cols()
-    fetch = _fetch_start([p[1] for p in pending]) if pending else None
-    return _PendingBatch(plans=plans, responses=responses,
-                         pending=pending, fetch=fetch,
-                         t_dispatch=t_dispatch,
-                         t_submitted=time.perf_counter(), queries=queries,
-                         profile=None if marks is None else (
-                             [(key, len(m)) for key, m in chunked], marks))
+        if marks is not None:
+            marks.append(_group_mark(dev))
+        if any(tag in ("bd", "plain") for _m, _p, tag in pending):
+            # A blockdense, candidate or dense group read the derived slot /
+            # ltf columns.
+            dev.drop_legacy_cols()
+        fetch = _fetch_start([p[1] for p in pending]) if pending else None
+        span.set(groups=len(pending))
+        return _PendingBatch(plans=plans, responses=responses,
+                             pending=pending, fetch=fetch, queries=queries,
+                             profile=None if marks is None else (
+                                 [(key, len(m)) for key, m in chunked], marks))
 
 
 def _group_mark(dev):
@@ -2209,13 +2192,30 @@ def collect_query_batch(dev, st: _PendingBatch, sp: SearchParams,
     ``(responses, fallback_ix)`` and the caller passes them through
     ``_submit_fallback`` / ``_finish_fallback`` (the pipelined loop
     submits that sub-batch before the next batch's groups)."""
+    with phase("batch.collect", groups=len(st.pending)):
+        if st.profile is not None:
+            _log_group_times(st.profile)
+        with phase("batch.fetch"):
+            arrays = _fetch_finish(st.fetch) if st.fetch is not None else []
+        with phase("batch.respond", rows=len(st.plans)):
+            fallback_ix = _respond(dev, st, arrays, sp)
+        if fallback_ix and not defer_fallback:
+            with phase("batch.fallback", rows=len(fallback_ix)):
+                _finish_fallback(
+                    dev, _submit_fallback(dev, st, fallback_ix, sp),
+                    fallback_ix, sp, st.responses)
+            fallback_ix = []
+    if defer_fallback:
+        return st.responses, fallback_ix
+    return st.responses
+
+
+def _respond(dev, st: _PendingBatch, arrays: list,
+             sp: SearchParams) -> list[int]:
+    """Unpack each group's fetched results into ``st.responses``;
+    returns the uncertified prefix rows."""
     from .ops.executor import unpack_prefix, unpack_sliced
 
-    if st.profile is not None:
-        _log_group_times(st.profile)
-    t_fetch = time.perf_counter()
-    arrays = _fetch_finish(st.fetch) if st.fetch is not None else []
-    t_resp = time.perf_counter()
     fallback_ix: list[int] = []
     for (members, _packed, tag), arr in zip(st.pending, arrays):
         n = len(members)
@@ -2236,20 +2236,7 @@ def collect_query_batch(dev, st: _PendingBatch, sp: SearchParams,
             scores, slots = scores[:n], slots[:n]
         _to_responses_group(dev, members, scores, slots, st.plans, sp,
                             st.responses)
-    if fallback_ix and not defer_fallback:
-        _finish_fallback(dev, _submit_fallback(dev, st, fallback_ix, sp),
-                         fallback_ix, sp, st.responses)
-        fallback_ix = []
-    log = _trace_logger()
-    if log.isEnabledFor(10):      # logging.DEBUG
-        log.debug("batch.exec: %d groups, dispatch %.1f ms, fetch %.1f "
-                  "ms, respond %.1f ms", len(st.pending),
-                  (st.t_submitted - st.t_dispatch) * 1e3,
-                  (t_resp - t_fetch) * 1e3,
-                  (time.perf_counter() - t_resp) * 1e3)
-    if defer_fallback:
-        return st.responses, fallback_ix
-    return st.responses
+    return fallback_ix
 
 
 def _submit_fallback(dev, st: _PendingBatch, fallback_ix: list[int],
@@ -2475,8 +2462,6 @@ def search_many_pipelined(dev, pipeline, batches: list[list[str]],
     instead of their sum.  Results are identical to per-batch
     search_many.
     """
-    from .utils.trace import phase
-
     out: list[Optional[list[Response]]] = [None] * len(batches)
     prev_st = None
     prev_i = -1

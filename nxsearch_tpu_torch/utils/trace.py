@@ -1,40 +1,310 @@
-"""Tracing / profiling hooks.
+"""Tracing: structured spans, counters and the collector's account.
 
 The reference has no tracing beyond the benchmark CLI's wall-clock
 printer (src/utils/benchmark.c:44-70); SURVEY §5 calls for profiler
 hooks and per-phase timings in the rebuild.
 
-- ``phase(name)``: near-zero-cost context manager; logs per-phase
-  wall-clock at DEBUG level (enable with NXS_LOG_LEVEL=DEBUG).
+- ``phase(name, **attrs)``: the one span API.  Tracing is on while the
+  ``nxsearch_tpu.trace`` logger is enabled for DEBUG (NXS_LOG_LEVEL=DEBUG,
+  or a handler that sets the level).  Off, a span costs one level check
+  and reads no clock.  On, it records a ``Span`` in a bounded ring
+  (``spans()``) and logs ``<name>: <ms> ms`` at DEBUG when it ends.
+- ``COUNTERS`` / ``count()``: the engine's counters (``search.EXEC_STATS``
+  is this dict).  The collector hook adds ``gc.gen0`` / ``gc.gen1`` /
+  ``gc.gen2`` (collections by generation) and ``gc.us`` (their time),
+  always, and a ``host.gc`` span while tracing is on.
 - ``profiler_trace(logdir)``: wraps ``torch.profiler.profile`` so a
   block of searches can be captured as a TensorBoard / Chrome trace;
   enabled with NXS_PROFILE_DIR or explicitly.
+
+Times are ``time.perf_counter_ns()``, the clock of ``time.perf_counter``.
+A leaf span (one that held no other) and a ``host.gc`` span also carry
+how their thread stalled inside them, from ``getrusage(RUSAGE_THREAD)``
+read at their open and close: ``offcpu_ms``, the wall time less the
+thread's user and system time (preemption, waits on locks, the GIL or
+the device), ``sys_ms`` (the thread's system time, split from its user
+time at the kernel's tick), ``minflt`` / ``majflt`` (page faults) and
+``nivcsw`` / ``nvcsw`` (involuntary / voluntary context switches).  A
+span that held others carries none: its children's and the time between
+them say it, and the reads would cost more than they tell.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import gc
+import itertools
 import logging
 import os
+import threading
 import time
+from dataclasses import dataclass, field
+
+try:
+    import resource
+    _RUSAGE_THREAD = getattr(resource, "RUSAGE_THREAD", None)
+except ImportError:                      # pragma: no cover - not POSIX
+    resource = None
+    _RUSAGE_THREAD = None
 
 from .log import get_logger
 
 _log = get_logger("trace")
+_DEBUG = logging.DEBUG
+
+# -- counters --------------------------------------------------------------
+
+# Executor-path counters (observability; reset freely).  Keys:
+# prefix / prefix_exact / sliced / sliced_head / blockdense /
+# candidate / dense count QUERIES routed through each path,
+# prefix_fallback the uncertified prefix rows re-run classically and
+# prefix_spec_used those a speculative twin answered, sliced_masked /
+# sliced_masked_rows the masked sliced rows and those of them on the
+# masked dense-row hybrid; coalesced / coalesced_pf count rows merged
+# into widened groups; sharded_prefix / sharded_sliced /
+# sharded_fallback count a mesh's rows by shard body.  The collector
+# hook adds GC_COUNTERS.
+COUNTERS: dict[str, int] = {}
+GC_COUNTERS = ("gc.gen0", "gc.gen1", "gc.gen2", "gc.us")
+# Request threads of the service search concurrently: the counters'
+# read-modify-write takes this lock, so no count is lost.
+_COUNT_LOCK = threading.Lock()
 
 
-@contextlib.contextmanager
-def phase(name: str):
-    """Time a phase; logs '<name>: N.NN ms' at DEBUG level."""
-    if not _log.isEnabledFor(logging.DEBUG):
-        yield
-        return
-    t0 = time.perf_counter()
+def count(key: str, n: int = 1) -> None:
+    with _COUNT_LOCK:
+        COUNTERS[key] = COUNTERS.get(key, 0) + n
+
+
+def counters() -> dict:
+    """A copy of the counters."""
+    return dict(COUNTERS)
+
+
+# -- spans -----------------------------------------------------------------
+
+@dataclass(slots=True)
+class Span:
+    """One finished span, as ``spans()`` returns it.  ``parent`` is the
+    id of the span that was open on the same thread when this one opened
+    (None at the top); ``seq`` numbers spans in the order they closed."""
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: int | None
+    thread: int
+    seq: int
+    attrs: dict = field(default_factory=dict)
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+
+CAPACITY = 1 << 16
+# Records are flat tuples: a Span's fields, then its attributes' keys
+# and values in turn.  A tuple of atomic values leaves the collector's
+# lists at its first collection (a dict or a nested tuple would keep it
+# there longer), so a full ring adds nothing to what a generation-2
+# sweep walks.
+_ring: collections.deque = collections.deque(maxlen=CAPACITY)
+_ids = itertools.count(1)
+_seqs = itertools.count()
+_seq_base = 0
+_local = threading.local()
+
+
+def _enabled() -> bool:
+    """The trace logger's level, read without the logging module's lock
+    (the collector hook runs inside whatever code allocated)."""
+    log = _log
+    if log.disabled or log.manager.disable >= _DEBUG:
+        return False
+    while log is not None:
+        if log.level:
+            return log.level <= _DEBUG
+        log = log.parent
+    return False
+
+
+def _stack() -> list:
     try:
-        yield
-    finally:
-        _log.debug("%s: %.2f ms", name, (time.perf_counter() - t0) * 1e3)
+        return _local.stack
+    except AttributeError:
+        _local.stack = []
+        return _local.stack
 
+
+def _rusage():
+    return (None if _RUSAGE_THREAD is None
+            else resource.getrusage(_RUSAGE_THREAD))
+
+
+def _stalls(attrs: dict, wall_ns: int, r0, r1) -> None:
+    """The stall attributes between two readings around ``wall_ns``.
+    The kernel brings a running thread's CPU time up to date at its
+    scheduler tick, so ``offcpu_ms`` is good to about a tick and can
+    read below 0 by as much."""
+    if r0 is None or r1 is None:
+        return
+    cpu_s = (r1.ru_utime - r0.ru_utime) + (r1.ru_stime - r0.ru_stime)
+    attrs["offcpu_ms"] = round(wall_ns / 1e6 - cpu_s * 1e3, 3)
+    attrs["sys_ms"] = round((r1.ru_stime - r0.ru_stime) * 1e3, 3)
+    attrs["minflt"] = r1.ru_minflt - r0.ru_minflt
+    attrs["majflt"] = r1.ru_majflt - r0.ru_majflt
+    attrs["nivcsw"] = r1.ru_nivcsw - r0.ru_nivcsw
+    attrs["nvcsw"] = r1.ru_nvcsw - r0.ru_nvcsw
+
+
+def _record(name: str, t0: int, t1: int, span_id: int, parent,
+            attrs: dict) -> None:
+    _ring.append((name, t0, t1, span_id, parent, threading.get_ident(),
+                  next(_seqs)) + tuple(itertools.chain.from_iterable(
+                      attrs.items())))
+
+
+class _Open:
+    """A span while it is open (tracing on).  ``leaf`` holds until a
+    span opens inside it."""
+
+    __slots__ = ("name", "attrs", "id", "parent", "t0", "r0", "leaf")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name = name
+        self.attrs = attrs
+
+    def set(self, **attrs) -> None:
+        """Add attributes known only inside the span."""
+        self.attrs.update(attrs)
+
+    def __enter__(self):
+        stack = _stack()
+        if stack:
+            stack[-1].leaf = False
+            self.parent = stack[-1].id
+        else:
+            self.parent = None
+        self.id = next(_ids)
+        self.leaf = True
+        stack.append(self)
+        self.r0 = _rusage()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        stack = _stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        wall = t1 - self.t0
+        if self.leaf:
+            _stalls(self.attrs, wall, self.r0, _rusage())
+        _record(self.name, self.t0, t1, self.id, self.parent, self.attrs)
+        _log.debug("%s: %.2f ms", self.name, wall / 1e6)
+        return False
+
+
+class _Off:
+    """The span of a switched-off tracer: does nothing."""
+
+    __slots__ = ()
+
+    def set(self, **attrs) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+def phase(name: str, **attrs):
+    """A span around a block: ``with phase("batch.submit", rows=n) as sp:``.
+
+    While tracing is on it is recorded (``spans()``) and logs
+    ``<name>: <ms> ms`` at DEBUG on the trace logger when it ends;
+    ``sp.set(key=value)`` adds attributes from inside the block."""
+    if not _log.isEnabledFor(_DEBUG):
+        return _OFF
+    return _Open(name, attrs)
+
+
+def spans() -> list[Span]:
+    """The recorded spans, oldest first by close (at most ``CAPACITY``;
+    ``dropped()`` counts those the ring let go)."""
+    return [Span(*r[:7], dict(zip(r[7::2], r[8::2])))
+            for r in sorted(_ring, key=lambda r: r[6])]
+
+
+def dropped() -> int:
+    """Spans recorded since the last ``reset()`` that the ring dropped,
+    the oldest first."""
+    if not _ring:
+        return 0
+    return max(r[6] for r in _ring) + 1 - _seq_base - len(_ring)
+
+
+def reset() -> None:
+    """Drop every recorded span."""
+    global _seq_base
+    _ring.clear()
+    _seq_base = next(_seqs) + 1
+
+
+# -- the cyclic collector --------------------------------------------------
+
+# (wall ns, traced, rusage, parent) of the running collection.
+# Collections do not nest, and one runs at a time.
+_gc_open: list = []
+
+
+def _gc_hook(phase_: str, info: dict) -> None:
+    """gc.callbacks: count each collection and its time; record a
+    ``host.gc`` span under the triggering thread's open span while
+    tracing is on.  It takes no lock and logs nothing: it runs inside
+    whatever code allocated, which may hold any lock.  Only this hook
+    writes the gc keys, and collections never overlap."""
+    if phase_ == "start":
+        if _enabled():
+            stack = _stack()
+            r0 = _rusage()
+            _gc_open.append((time.perf_counter_ns(), True, r0,
+                             stack[-1].id if stack else None))
+        else:
+            _gc_open.append((time.perf_counter_ns(), False, None, None))
+        return
+    if not _gc_open:
+        return
+    t0, traced, r0, parent = _gc_open.pop()
+    t1 = time.perf_counter_ns()
+    gen = info.get("generation", 0)
+    key = GC_COUNTERS[gen] if 0 <= gen < 3 else "gc.gen2"
+    COUNTERS[key] = COUNTERS.get(key, 0) + 1
+    COUNTERS["gc.us"] = COUNTERS.get("gc.us", 0) + (t1 - t0) // 1000
+    if traced:
+        attrs = {"generation": gen, "collected": info.get("collected", 0)}
+        _stalls(attrs, t1 - t0, r0, _rusage())
+        _record("host.gc", t0, t1, next(_ids), parent, attrs)
+
+
+def _install_gc_hook() -> None:
+    # One hook per process, also when this module is loaded again.
+    gc.callbacks[:] = [cb for cb in gc.callbacks
+                       if getattr(cb, "__qualname__", "") != "_gc_hook"
+                       or getattr(cb, "__module__", "") != __name__]
+    gc.callbacks.append(_gc_hook)
+
+
+_install_gc_hook()
+
+
+# -- torch.profiler --------------------------------------------------------
 
 @contextlib.contextmanager
 def profiler_trace(logdir: str | None = None):

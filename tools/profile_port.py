@@ -6,8 +6,9 @@ reports, on stderr and as one JSON line on stdout:
 
 - the host phases of search_pipelined, per 2048-query batch, from the
   package's own ``phase`` spans (utils/trace.py): prep.* (parse,
-  resolve, fuzzy), batch.plan, pipeline.submit (plan included) and
-  pipeline.collect (device wait and result copy included);
+  resolve, fuzzy), batch.plan, pipeline.submit (plan and batch.submit
+  included) and pipeline.collect (batch.collect: batch.fetch, the
+  device wait and result copy, and batch.respond);
 - one search_pipelined pass and one fuzzy search_many under
   torch.profiler: wall time, the union of device kernel intervals (the
   device's busy share of the pass; the profiler slows the host, so the
@@ -41,19 +42,14 @@ import chip_smoke as smoke  # noqa: E402
 
 
 class _Spans(logging.Handler):
-    """Sums the milliseconds of every ``phase`` span by name, and the
-    fields of collect_query_batch's ``batch.exec`` line."""
+    """Sums the milliseconds of every ``phase`` span by name."""
 
     def __init__(self):
         super().__init__(logging.DEBUG)
         self.ms = defaultdict(float)
 
     def emit(self, record):
-        if record.msg.startswith("batch.exec"):
-            for key, v in zip(("exec.groups", "exec.dispatch",
-                               "exec.fetch", "exec.respond"), record.args):
-                self.ms[key] += v
-        else:
+        if isinstance(record.args, tuple) and len(record.args) == 2:
             name, ms = record.args
             self.ms[name] += ms
 
