@@ -30,6 +30,7 @@ from .search import get_search_params, search, search_many
 from .text.filters import FilterPipeline, FilterRegistry
 from .text.tokenizer import TOKENSET_STAGE, tokenize
 from .utils.rwlock import RWLock
+from .utils.trace import collector_hold
 from .utils.validate import str_isalnumdu
 
 _ALGO_IDS = {"BM25": ALGO_BM25, "TF-IDF": ALGO_TFIDF}
@@ -223,14 +224,20 @@ class Index:
             self._rw.downgrade()
             return
 
+    # The search entry points hold automatic cyclic collection off
+    # around the search itself (utils/trace.collector_hold), after
+    # _read_synced: a journal sync or snapshot build runs with the
+    # collector as the application left it.
+
     def search(self, query: str, params: Optional[Params] = None) -> Response:
         """Search the index (nxs_index_search)."""
         sp = get_search_params(self.algo, params)
         self._read_synced()
         try:
-            fuzzy = self._fuzzy_lookup if sp.fuzzymatch else None
-            return search(self.dev, self.pipeline, query, sp,
-                          fuzzy_lookup=fuzzy)
+            with collector_hold():
+                fuzzy = self._fuzzy_lookup if sp.fuzzymatch else None
+                return search(self.dev, self.pipeline, query, sp,
+                              fuzzy_lookup=fuzzy)
         finally:
             self._rw.read_release()
 
@@ -243,11 +250,12 @@ class Index:
         sp = get_search_params(self.algo, params)
         self._read_synced()
         try:
-            fuzzy = self._fuzzy_lookup if sp.fuzzymatch else None
-            prefetch = self._fuzzy_prefetch if sp.fuzzymatch else None
-            return search_many(self.dev, self.pipeline, queries, sp,
-                               fuzzy_lookup=fuzzy,
-                               fuzzy_prefetch=prefetch)
+            with collector_hold():
+                fuzzy = self._fuzzy_lookup if sp.fuzzymatch else None
+                prefetch = self._fuzzy_prefetch if sp.fuzzymatch else None
+                return search_many(self.dev, self.pipeline, queries, sp,
+                                   fuzzy_lookup=fuzzy,
+                                   fuzzy_prefetch=prefetch)
         finally:
             self._rw.read_release()
 
@@ -262,12 +270,13 @@ class Index:
         sp = get_search_params(self.algo, params)
         self._read_synced()
         try:
-            fuzzy = self._fuzzy_lookup if sp.fuzzymatch else None
-            prefetch = self._fuzzy_prefetch if sp.fuzzymatch else None
-            return search_many_pipelined(self.dev, self.pipeline,
-                                         batches, sp,
-                                         fuzzy_lookup=fuzzy,
-                                         fuzzy_prefetch=prefetch)
+            with collector_hold():
+                fuzzy = self._fuzzy_lookup if sp.fuzzymatch else None
+                prefetch = self._fuzzy_prefetch if sp.fuzzymatch else None
+                return search_many_pipelined(self.dev, self.pipeline,
+                                             batches, sp,
+                                             fuzzy_lookup=fuzzy,
+                                             fuzzy_prefetch=prefetch)
         finally:
             self._rw.read_release()
 

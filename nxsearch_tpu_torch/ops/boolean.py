@@ -83,16 +83,20 @@ def compile_program(root: Expr, term_slot_of_token) -> tuple[np.ndarray,
 
 
 def check_nesting(root: Expr) -> None:
-    """Enforce the reference's recursion limit (search.c:66-75)."""
-    def depth(expr: Expr, r: int) -> int:
+    """Enforce the reference's recursion limit (search.c:66-75).
+
+    A walk over an explicit stack: a recursive closure would leave a
+    function-cell cycle behind for every query a search parses in full,
+    garbage that only the cyclic collector reclaims."""
+    stack = [(root, 0)]
+    while stack:
+        expr, r = stack.pop()
         if r > QUERY_NESTING_LIMIT:
             raise NxsError(
                 ErrorCode.LIMIT,
                 f"query nesting limit reached ({QUERY_NESTING_LIMIT} levels)")
-        if expr.type == EXPR_VAL_TOKEN:
-            return r
-        return max(depth(e, r + 1) for e in expr.elements)
-    depth(root, 0)
+        if expr.type != EXPR_VAL_TOKEN:
+            stack.extend((e, r + 1) for e in expr.elements)
 
 
 def build_term_masks(slot, qid, valid, *, n_terms: int, n_words: int):

@@ -13,6 +13,9 @@ hooks and per-phase timings in the rebuild.
   is this dict).  The collector hook adds ``gc.gen0`` / ``gc.gen1`` /
   ``gc.gen2`` (collections by generation) and ``gc.us`` (their time),
   always, and a ``host.gc`` span while tracing is on.
+- ``collector_hold()``: holds automatic collection off for the span of a
+  search call (``nxs.Index``'s search entry points), counted in
+  ``gc.hold`` / ``gc.hold_collect``.
 - ``profiler_trace(logdir)``: wraps ``torch.profiler.profile`` so a
   block of searches can be captured as a TensorBoard / Chrome trace;
   enabled with NXS_PROFILE_DIR or explicitly.
@@ -64,9 +67,10 @@ _DEBUG = logging.DEBUG
 # masked dense-row hybrid; coalesced / coalesced_pf count rows merged
 # into widened groups; sharded_prefix / sharded_sliced /
 # sharded_fallback count a mesh's rows by shard body.  The collector
-# hook adds GC_COUNTERS.
+# hook and the collector hold add GC_COUNTERS.
 COUNTERS: dict[str, int] = {}
-GC_COUNTERS = ("gc.gen0", "gc.gen1", "gc.gen2", "gc.us")
+GC_COUNTERS = ("gc.gen0", "gc.gen1", "gc.gen2", "gc.us", "gc.hold",
+               "gc.hold_collect")
 # Request threads of the service search concurrently: the counters'
 # read-modify-write takes this lock, so no count is lost.
 _COUNT_LOCK = threading.Lock()
@@ -302,6 +306,81 @@ def _install_gc_hook() -> None:
 
 
 _install_gc_hook()
+
+
+# -- the collector hold ----------------------------------------------------
+
+# The hold's state, under _HOLD_LOCK: threads holding it; the ticket of
+# its start, or of the last collection a release ran; whether it turned
+# automatic collection off (a collector the application turned off is
+# left off).  Tickets order the holds' starts.
+_HOLD_LOCK = threading.Lock()
+_holders = 0
+_hold_since = 0
+_hold_owned = False
+_tickets = itertools.count(1)
+
+
+class collector_hold:
+    """Hold CPython's automatic cyclic collection off for the span of a
+    search call: ``with collector_hold(): ...``.
+
+    A call's objects then die by reference counting when it lets them
+    go, unwalked and unpromoted, so they no longer trigger the
+    generation-2 sweeps of the whole heap that paced the host path.  The
+    hold is process-wide: the first holder turns automatic collection
+    off if it was on, and the last turns it back on only then.  A hold
+    inside another on the same thread is part of the outer one.
+
+    Overlapping calls on several threads could keep the hold for good,
+    so a release that finds the hold older than its own call (calls
+    overlapped for a whole call) runs the young collection that the
+    automatic collector would have run by then (generation 1 where its
+    count is due, else 0) and restarts the hold's clock: no collection
+    is held off longer than one call of the thread that holds it
+    longest.  Counters: ``gc.hold`` (calls under the hold) and
+    ``gc.hold_collect`` (collections such releases ran; the collector
+    hook counts and times them as any other)."""
+
+    __slots__ = ("ticket",)
+
+    def __enter__(self):
+        global _holders, _hold_since, _hold_owned
+        depth = getattr(_local, "hold", 0)
+        _local.hold = depth + 1
+        if depth:
+            self.ticket = None
+            return self
+        with _HOLD_LOCK:
+            self.ticket = next(_tickets)
+            if not _holders:
+                _hold_since = self.ticket
+                _hold_owned = gc.isenabled()
+                if _hold_owned:
+                    gc.disable()
+            _holders += 1
+        count("gc.hold")
+        return self
+
+    def __exit__(self, *exc):
+        global _holders, _hold_since
+        _local.hold -= 1
+        if self.ticket is None:
+            return False
+        collect = False
+        with _HOLD_LOCK:
+            _holders -= 1
+            if not _holders:
+                if _hold_owned:
+                    gc.enable()
+            elif _hold_owned and _hold_since < self.ticket:
+                _hold_since = next(_tickets)
+                collect = True
+        if collect:
+            due = gc.get_count()[1] > gc.get_threshold()[1]
+            gc.collect(1 if due else 0)
+            count("gc.hold_collect")
+        return False
 
 
 # -- torch.profiler --------------------------------------------------------
