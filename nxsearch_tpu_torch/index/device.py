@@ -511,9 +511,15 @@ class DeviceIndex:
         guard_len = n_round - p_pad - prefix_len
         upload_hi = min(n_round, -(-p_pad // chunk) * chunk)
         with phase("snapshot.pack", rows=n_round, postings=n_post):
-            pack, dlen_dev, slot_exact = self._upload_pack(
+            pack, dlen_dev = self._upload_pack(
                 n_round, upload_hi, slot_real, tf16, ltf_real, dlen,
                 n_post=n_post, s_pad=s_pad, p_pad=p_pad)
+        # From 2**24 slots the pack's f32 slots round odd slots onto
+        # their neighbours: the exact int32 column of the postings stays.
+        slot_exact = None
+        if s_pad >= (1 << 24):
+            with phase("snapshot.slot_exact", postings=n_post):
+                slot_exact = self._upload_slot_exact(slot_real, p_pad)
 
         # The region's rows carry f32 slots; only impact-prefix plans
         # read them, and search._prefix_mode gates those below 2**24.
@@ -552,15 +558,10 @@ class DeviceIndex:
         zero rows up to p_pad, then rows carrying the s_pad sentinel slot
         as far as the reference's chunked upload writes them (beyond,
         zero rows); the prefix build overwrites the region.  Returns the
-        pack, the device doc lengths and the exact slot column (None
-        below 2**24 slots)."""
+        pack and the device doc lengths."""
         dev = self.device
         pack = torch.zeros((rows, 3), dtype=torch.float32, device=dev)
         dlen_dev = self._put(dlen)
-        # From 2**24 slots the pack's f32 slots round odd slots onto
-        # their neighbours: the exact int32 column of the upload stays.
-        slot_exact = (torch.zeros(p_pad, dtype=torch.int32, device=dev)
-                      if s_pad >= (1 << 24) else None)
         sent_hi = min(rows, upload_hi)
         for off in range(0, sent_hi, _PACK_CHUNK):
             hi = min(off + _PACK_CHUNK, sent_hi)
@@ -583,9 +584,16 @@ class DeviceIndex:
             pack[off:hi, 1] = ltf
             pack[off:hi, 2] = dlen_dev[torch.clamp(
                 slot_d, max=s_pad - 1).to(torch.int64)]
-            if slot_exact is not None and off < p_pad:
-                slot_exact[off: min(hi, p_pad)] = slot_d[: p_pad - off]
-        return pack, dlen_dev, slot_exact
+        return pack, dlen_dev
+
+    def _upload_slot_exact(self, slot_real, p_pad: int):
+        """int32[p_pad] exact slot column on the device: the CSR
+        postings' slots, then zeros, uploaded in pack-sized chunks."""
+        col = torch.zeros(p_pad, dtype=torch.int32, device=self.device)
+        for off in range(0, len(slot_real), _PACK_CHUNK):
+            hi = min(off + _PACK_CHUNK, len(slot_real))
+            col[off:hi] = self._put(slot_real[off:hi])
+        return col
 
     def _build_dense_rows(self, pack, slot_exact, term_starts, counts,
                           s_pad: int) -> np.ndarray:

@@ -1388,7 +1388,8 @@ def _plain_inputs(dev, plans: list, n_pad: int) -> tuple:
     """The candidate / dense executors' arguments for plans of one
     ``batch_key``, rows padded to ``n_pad`` (zero-length ranges score
     nothing): the snapshot's columns, then q_start, q_len, q_idf, adl,
-    prog_ops and prog_args on the device."""
+    prog_ops and prog_args on the device; and the posting lanes the
+    rows hold (the sum of their q_len)."""
     sample = plans[0]
     q_pad = sample.q_start.shape[-1]
     prog_len = len(sample.prog_ops)
@@ -1409,7 +1410,7 @@ def _plain_inputs(dev, plans: list, n_pad: int) -> tuple:
 
     return (dev.postings_slot, dev.postings_ltf, dev.doc_len,
             dev.alive_mask, put(q_start), put(q_len), put(q_idf),
-            dev.adl_dev, put(prog_ops), put(prog_args))
+            dev.adl_dev, put(prog_ops), put(prog_args)), int(q_len.sum())
 
 
 def _dispatch_plain(dev, plans: list, sp: SearchParams, k: int,
@@ -1417,21 +1418,38 @@ def _dispatch_plain(dev, plans: list, sp: SearchParams, k: int,
     """Dispatch one candidate or dense group (plans of one
     ``batch_key``); returns the packed device result f32[n_pad, 2, k']:
     scores, and the int32 slots bit for bit (``unpack_bits``), exact
-    at any slot count."""
+    at any slot count.
+
+    The ``submit.plain`` span covers the packing, the upload and the
+    executor's launches (attrs ``rows``, ``budget``, ``dense``,
+    ``lanes``).  Counters: ``plain.lanes``, the posting lanes the rows
+    hold; ``plain.plane_lanes``, the lanes of the planes as dispatched
+    (padded rows x ``budget``, or x ``n_slots`` for a dense group);
+    ``plain.groups``, the dispatches."""
     from .ops.executor import device_search_batch, device_search_dense_batch
     sample = plans[0]
-    kw = dict(budget=sample.budget, k=k, algo=sp.algo,
-              use_mask=sample.use_mask, depth=sample.depth)
-    if sample.use_dense:
-        fn = device_search_dense_batch
-        kw.update(n_slots=dev.n_slots, term_lens=np.max(
-            [p.q_len for p in plans], axis=0).tolist())
-    else:
-        fn = device_search_batch
-    scores, slots = fn(*_plain_inputs(dev, plans, n_pad), **kw)
-    # Non-matches may carry the padding sentinel; zero them, as the
-    # sliced result does.
-    return _pack_bits(scores, torch.where(scores > 0.0, slots, 0))
+    dense = bool(sample.use_dense)
+    with phase("submit.plain", rows=len(plans), budget=sample.budget,
+               dense=dense) as span:
+        kw = dict(budget=sample.budget, k=k, algo=sp.algo,
+                  use_mask=sample.use_mask, depth=sample.depth)
+        if dense:
+            fn = device_search_dense_batch
+            kw.update(n_slots=dev.n_slots, term_lens=np.max(
+                [p.q_len for p in plans], axis=0).tolist())
+        else:
+            fn = device_search_batch
+        inputs, lanes = _plain_inputs(dev, plans, n_pad)
+        scores, slots = fn(*inputs, **kw)
+        # Non-matches may carry the padding sentinel; zero them, as the
+        # sliced result does.
+        packed = _pack_bits(scores, torch.where(scores > 0.0, slots, 0))
+        span.set(lanes=lanes)
+    _count("plain.lanes", lanes)
+    _count("plain.plane_lanes",
+           n_pad * (dev.n_slots if dense else sample.budget))
+    _count("plain.groups")
+    return packed
 
 
 def _dispatch_sliced_single(dev, plan: _Plan, sp: SearchParams, k: int):

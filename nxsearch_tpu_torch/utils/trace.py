@@ -67,10 +67,14 @@ _DEBUG = logging.DEBUG
 # masked dense-row hybrid; coalesced / coalesced_pf count rows merged
 # into widened groups; sharded_prefix / sharded_sliced /
 # sharded_fallback count a mesh's rows by shard body.  The collector
-# hook and the collector hold add GC_COUNTERS.
+# hook and the collector hold add GC_COUNTERS; the candidate and dense
+# dispatch groups (search._dispatch_plain) add PLAIN_COUNTERS: the
+# posting lanes their rows hold, the lanes of their planes as
+# dispatched, and the dispatches.
 COUNTERS: dict[str, int] = {}
 GC_COUNTERS = ("gc.gen0", "gc.gen1", "gc.gen2", "gc.us", "gc.hold",
                "gc.hold_collect")
+PLAIN_COUNTERS = ("plain.lanes", "plain.plane_lanes", "plain.groups")
 # Request threads of the service search concurrently: the counters'
 # read-modify-write takes this lock, so no count is lost.
 _COUNT_LOCK = threading.Lock()

@@ -28,7 +28,7 @@ import nxsearch_tpu
 import nxsearch_tpu.search as jsearch
 import nxsearch_tpu_torch
 from nxsearch_tpu_torch import search as psearch
-from nxsearch_tpu_torch.utils.trace import GC_COUNTERS
+from nxsearch_tpu_torch.utils.trace import GC_COUNTERS, PLAIN_COUNTERS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIER = ["--docs", "20000", "--vocab", "6000", "--mean-len", "20"]
@@ -142,7 +142,8 @@ def test_route_counters_equal_reference(at_cache, monkeypatch):
                                   .set_uint("limit", 10))
             assert len(got) == N_TRACE
             counters.append(dict(sorted(
-                (k, v) for k, v in stats.items() if k not in GC_COUNTERS)))
+                (k, v) for k, v in stats.items()
+                if k not in GC_COUNTERS + PLAIN_COUNTERS)))
         finally:
             nxs.close()
     ref, port = counters

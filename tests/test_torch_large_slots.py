@@ -33,7 +33,7 @@ from nxsearch_tpu_torch import search as psearch
 from nxsearch_tpu_torch.index.device import DeviceIndex
 from nxsearch_tpu_torch.parallel import make_mesh
 from nxsearch_tpu_torch.parallel import sharded as psharded
-from nxsearch_tpu_torch.utils.trace import GC_COUNTERS
+from nxsearch_tpu_torch.utils.trace import GC_COUNTERS, PLAIN_COUNTERS
 from nxsearch_tpu_torch.query.ast import (EXPR_OP_AND, EXPR_OP_OR,
                                           EXPR_VAL_TOKEN)
 from nxsearch_tpu_torch.query.parser import parse_query
@@ -263,7 +263,8 @@ def test_mesh_shard_past_2_24_slots(mesh_big, big, monkeypatch, query,
     sp = nxsearch_tpu_torch.Params().set_uint("limit", MESH_LIMIT)
     got = mesh_big.search_many([query], sp)
     assert {k: v for k, v in psearch.EXEC_STATS.items()
-            if k not in GC_COUNTERS} == {"sharded_fallback": 1}
+            if k not in GC_COUNTERS + PLAIN_COUNTERS} == \
+        {"sharded_fallback": 1}
     assert bodies == [dense]
     oracle = Oracle(big, "BM25")
     oracle.rank = np.arange(big.host.doc_ids.n)
