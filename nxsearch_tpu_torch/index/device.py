@@ -36,6 +36,10 @@ on the host as the delta (scored by search._delta_results) until the
 delta outgrows its budget and a full rebuild runs.  The CSR layout is
 cached in ``csr_cache.npz`` beside the journals above 2**24 postings,
 in the reference's format, so both packages can open one basedir.
+
+``prefix_graphs`` (ops/graphs.GraphCache) holds the CUDA graphs of the
+impact-prefix dispatch groups captured against this snapshot; every
+generation that ``refresh`` installs starts an empty one.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ..ops.graphs import GraphCache
 from ..utils.trace import phase
 from .hostindex import HostIndex
 
@@ -217,6 +222,7 @@ class DeviceIndex:
         self._bounds_cache = None       # device int32[C, G+1]
         self._bounds_map = None         # OrderedDict term_id -> row
         self._bounds_next = 1
+        self.prefix_graphs = GraphCache(self.device)
 
     # -- live aggregates (host-authoritative; search syncs first) ------
 
@@ -329,6 +335,7 @@ class DeviceIndex:
         True when the device state changed (rebuild or bitmap flip)."""
         if self.generation == self.host.generation:
             return False
+        self.prefix_graphs = GraphCache(self.device)
         host = self.host
         if self.postings_pack is None:
             return self._full_rebuild()

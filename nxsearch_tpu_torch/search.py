@@ -1367,21 +1367,50 @@ def _upload(dev, buf: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(buf).to(dev.device)
 
 
+def _prefix_graphs(dev, r: int):
+    """The snapshot's graph cache (ops/graphs.py) where a prefix group
+    can replay as a CUDA graph: a CUDA device, one device, R = 0 (an
+    R > 0 group's certificate makes host tensors).  None elsewhere."""
+    if r or hasattr(dev, "mesh") or dev.device.type != "cuda":
+        return None
+    return dev.prefix_graphs
+
+
 def _dispatch_prefix(dev, sl_start, sl_len, sl_idf, pf_bits, pf_tail,
                      pf_start, pf_len, pf_idf, *, sp: SearchParams,
                      k: int, n_run: int, T: int):
     """Dispatch one impact-prefix group ([n, qs] plan arrays, [n, R]
     wide-term arrays); returns the packed device result f32[n, 3, k']
-    whose exact flags certify the first min(limit, k) rows."""
+    whose exact flags certify the first min(limit, k) rows.
+
+    On a CUDA device a group runs eagerly the first time its signature
+    (the key: padded rows and every argument that fixes the chain's
+    shapes and constants) comes, is captured as a CUDA graph the second
+    time and replays from then on (``_prefix_graphs``); counted in
+    ``prefix.graph_eager``, ``prefix.graph_capture`` and
+    ``prefix.graph_replay`` (utils/trace.GRAPH_COUNTERS)."""
     from .ops.executor import pack_prefix_group, prefix_topk_packed
     buf = pack_prefix_group(sl_start, sl_len, sl_idf, pf_bits, pf_tail,
                             pf_start, pf_len, pf_idf)
     r = pf_tail.shape[1]
-    return prefix_topk_packed(
-        dev.postings_pack, dev.alive_mask, _upload(dev, buf), dev.adl_dev,
-        qs=sl_start.shape[1], R=r, T=T, k=k, M=_prefix_m(sp, r),
-        algo=sp.algo, n_slots=dev.n_slots, alive_all=dev.alive_all,
-        n_run=n_run, k_ret=min(sp.limit, k))
+    kw = dict(qs=sl_start.shape[1], R=r, T=T, k=k, M=_prefix_m(sp, r),
+              algo=sp.algo, n_slots=dev.n_slots, alive_all=dev.alive_all,
+              n_run=n_run, k_ret=min(sp.limit, k))
+    snapshot = pack, alive, adl = (dev.postings_pack, dev.alive_mask,
+                                   dev.adl_dev)
+
+    def launch(buf_dev):
+        return prefix_topk_packed(pack, alive, buf_dev, adl, **kw)
+
+    graphs = _prefix_graphs(dev, r)
+    if graphs is None:
+        if dev.device.type == "cuda":
+            _count("prefix.graph_eager")
+        return launch(_upload(dev, buf))
+    key = tuple(kw.items()) + (("n_pad", sl_start.shape[0]),)
+    packed, how = graphs.run(key, snapshot, buf, launch)
+    _count("prefix.graph_" + how)
+    return packed
 
 
 def _plain_inputs(dev, plans: list, n_pad: int) -> tuple:

@@ -70,11 +70,16 @@ _DEBUG = logging.DEBUG
 # hook and the collector hold add GC_COUNTERS; the candidate and dense
 # dispatch groups (search._dispatch_plain) add PLAIN_COUNTERS: the
 # posting lanes their rows hold, the lanes of their planes as
-# dispatched, and the dispatches.
+# dispatched, and the dispatches.  Impact-prefix groups dispatched on a
+# CUDA device (search._dispatch_prefix) add GRAPH_COUNTERS: the groups
+# that replayed a captured CUDA graph, that captured one, and that ran
+# eagerly.
 COUNTERS: dict[str, int] = {}
 GC_COUNTERS = ("gc.gen0", "gc.gen1", "gc.gen2", "gc.us", "gc.hold",
                "gc.hold_collect")
 PLAIN_COUNTERS = ("plain.lanes", "plain.plane_lanes", "plain.groups")
+GRAPH_COUNTERS = ("prefix.graph_replay", "prefix.graph_capture",
+                  "prefix.graph_eager")
 # Request threads of the service search concurrently: the counters'
 # read-modify-write takes this lock, so no count is lost.
 _COUNT_LOCK = threading.Lock()

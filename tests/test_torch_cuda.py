@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from nxsearch_tpu_torch import search as _search
 from nxsearch_tpu_torch.ops import executor, kernels
 
 pytestmark = pytest.mark.cuda
@@ -792,3 +793,190 @@ def test_large_snapshot_on_card_matches_cpu(tmp_path):
     finally:
         gpu.close()
         cpu.close()
+
+
+# -- the impact-prefix executor's CUDA graphs (ops/graphs.py) ------------------
+
+def _graph_index(tmp_path):
+    """A card index of 3000 Zipf documents, the vocabulary and its
+    probabilities."""
+    import bench
+    from nxsearch_tpu_torch import Nxs
+
+    nxs = Nxs(str(tmp_path), device="cuda")
+    idx = nxs.index_create("t")
+    idx.add_many(bench.zipf_range(0, 3000, 6000, 20))
+    words = np.array([f"w{i:05d}" for i in range(6000)])
+    probs = 1.0 / (np.arange(6000) + 10.0)
+    return nxs, idx, words, probs / probs.sum()
+
+
+def _graphs(monkeypatch, on: bool):
+    """Prefix groups replay their CUDA graphs (on), or all run the eager
+    chain (off)."""
+    from nxsearch_tpu_torch import search as psearch
+    monkeypatch.setattr(psearch, "_prefix_graphs",
+                        _PREFIX_GRAPHS if on else lambda dev, r: None)
+
+
+def _graph_counts():
+    from nxsearch_tpu_torch import search as psearch
+    from nxsearch_tpu_torch.utils.trace import GRAPH_COUNTERS
+    return {k: psearch.EXEC_STATS.get(k, 0) for k in GRAPH_COUNTERS}
+
+
+
+
+_PREFIX_GRAPHS = _search._prefix_graphs
+
+
+def _results(responses):
+    return [r.results for r in responses]
+
+
+def test_prefix_graphs_replay_the_eager_chain(tmp_path, monkeypatch):
+    """search_many, one signature chunked many times into one batch, and
+    single searches: the first pass runs each signature eagerly, the
+    second captures it, the third replays every group, and every pass
+    answers bit for bit as the eager chain."""
+    _need_card()
+    from nxsearch_tpu_torch import Params
+    from nxsearch_tpu_torch import search as psearch
+
+    nxs, idx, words, probs = _graph_index(tmp_path)
+    sp = Params().set_uint("limit", 10)
+    import bench
+    queries = bench.make_queries(300, words, probs,
+                                 np.random.default_rng(21))
+    _graphs(monkeypatch, False)
+    want = _results(idx.search_many(queries, sp))
+    _graphs(monkeypatch, True)
+    passes = []
+    for _ in range(3):
+        psearch.EXEC_STATS.clear()
+        assert _results(idx.search_many(queries, sp)) == want
+        passes.append(_graph_counts())
+    groups = sum(passes[0].values())
+    assert groups > 1 and passes[0]["prefix.graph_eager"] > 0
+    assert passes[2] == {"prefix.graph_replay": groups,
+                         "prefix.graph_capture": 0,
+                         "prefix.graph_eager": 0}, passes
+    assert len(idx.dev.prefix_graphs.graphs) > 0
+
+    # Groups chunked to 8 rows: one signature many times in a batch.
+    monkeypatch.setattr(psearch, "_group_rows_cap", lambda dev, key: 8)
+    _graphs(monkeypatch, False)
+    want8 = _results(idx.search_many(queries, sp))
+    _graphs(monkeypatch, True)
+    psearch.EXEC_STATS.clear()
+    for _ in range(3):
+        assert _results(idx.search_many(queries, sp)) == want8
+    assert psearch.EXEC_STATS["prefix.graph_replay"] > 2 * len(
+        idx.dev.prefix_graphs.graphs)
+    monkeypatch.undo()
+
+    single = queries[:12]
+    _graphs(monkeypatch, False)
+    want1 = [idx.search(q, sp).results for q in single]
+    _graphs(monkeypatch, True)
+    psearch.EXEC_STATS.clear()
+    for _ in range(3):
+        assert [idx.search(q, sp).results for q in single] == want1
+    assert psearch.EXEC_STATS["prefix.graph_replay"] > 0
+    nxs.close()
+
+
+def test_prefix_graphs_pipelined_batches(tmp_path, monkeypatch):
+    """Pipelined batches, whose groups replay while the previous batch's
+    are still on the device, answer as the eager chain."""
+    _need_card()
+    import bench
+    from nxsearch_tpu_torch import Params
+    from nxsearch_tpu_torch import search as psearch
+
+    nxs, idx, words, probs = _graph_index(tmp_path)
+    sp = Params().set_uint("limit", 10)
+    queries = bench.make_queries(480, words, probs,
+                                 np.random.default_rng(22))
+    batches = [queries[i: i + 120] for i in range(0, 480, 120)]
+    _graphs(monkeypatch, False)
+    want = [r.results for b in idx.search_pipelined(batches, sp) for r in b]
+    _graphs(monkeypatch, True)
+    psearch.EXEC_STATS.clear()
+    for _ in range(3):
+        got = idx.search_pipelined(batches, sp)
+        assert [r.results for b in got for r in b] == want
+    assert psearch.EXEC_STATS["prefix.graph_replay"] > 0
+    nxs.close()
+
+
+def test_prefix_graphs_after_a_bulk_add(tmp_path, monkeypatch):
+    """Graphs captured, then a bulk add: the search after it runs on a
+    new snapshot with a new cache and answers as the eager chain on that
+    snapshot."""
+    _need_card()
+    import bench
+    from nxsearch_tpu_torch import Params
+    from nxsearch_tpu_torch import search as psearch
+
+    nxs, idx, words, probs = _graph_index(tmp_path)
+    sp = Params().set_uint("limit", 10)
+    queries = bench.make_queries(200, words, probs,
+                                 np.random.default_rng(23))
+    for _ in range(3):
+        idx.search_many(queries, sp)
+    old = idx.dev.prefix_graphs
+    assert old.graphs
+    idx.add_many(bench.zipf_range(3000, 9000, 6000, 20))
+    psearch.EXEC_STATS.clear()
+    got = [_results(idx.search_many(queries, sp)) for _ in range(3)]
+    assert idx.dev.prefix_graphs is not old
+    assert psearch.EXEC_STATS["prefix.graph_replay"] > 0
+    _graphs(monkeypatch, False)
+    want = _results(idx.search_many(queries, sp))
+    assert got == [want] * 3
+    assert any(d > 3000 for r in want for d, _s in r)
+    nxs.close()
+
+
+def test_prefix_graphs_two_threads(tmp_path, monkeypatch):
+    """Two threads dispatch the same signatures at once, with captures
+    among them: each gets its own answers, those of the eager chain."""
+    _need_card()
+    import threading
+
+    import bench
+    from nxsearch_tpu_torch import Params
+    from nxsearch_tpu_torch import search as psearch
+
+    nxs, idx, words, probs = _graph_index(tmp_path)
+    sp = Params().set_uint("limit", 10)
+    rng = np.random.default_rng(24)
+    sets = [bench.make_queries(128, words, probs, rng) for _ in range(2)]
+    _graphs(monkeypatch, False)
+    wants = [_results(idx.search_many(q, sp)) for q in sets]
+    _graphs(monkeypatch, True)
+    psearch.EXEC_STATS.clear()
+    start = threading.Barrier(2)
+    errors = []
+
+    def worker(queries, want):
+        try:
+            start.wait()
+            for _ in range(8):
+                assert _results(idx.search_many(queries, sp)) == want
+        except BaseException as e:          # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(q, w))
+               for q, w in zip(sets, wants)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    counts = _graph_counts()
+    assert counts["prefix.graph_replay"] > 0, counts
+    assert counts["prefix.graph_capture"] > 0, counts
+    nxs.close()
