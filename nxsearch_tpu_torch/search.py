@@ -5,25 +5,36 @@ Port of nxsearch_tpu/search.py.  The host half of nxs_index_search
 query preparation, the numpy planner and response assembly -- is
 carried over unchanged, so both packages build field-for-field equal
 plans.  The device half dispatches every single-device executor of
-the reference (ops/executor.py): the impact-prefix path ("pf"; R = 0
-complete planes, and R > 0 planes whose uncertified rows re-run
-classically -- a speculative sliced twin for ``search``, one fallback
-sub-batch for the batch paths), the sliced path ("sl": single,
-windowed, dense-row hybrid, head merge, masked, masked dense-row
-hybrid), the blockdense path ("bd": the segsum kernel over every
-slot), and the candidate and dense executors (plans keyed by
-``_Plan.batch_key``: masked queries of more than 32 terms).  The
-prefix, sliced and blockdense routes read slots from the f32 pack,
-exact only below 2**24 slots, and the planner gates them there; a
-snapshot of 2**24 slots or more takes the candidate and dense
-executors, as in the reference, which read the snapshot's exact int32
-slot column (the reference's column is rounded there).  On a
-doc-sharded index (parallel.ShardedDeviceIndex, ``hasattr(dev,
-"mesh")``) the same planner plans per shard and ``_dispatch_mesh``
-runs each group's shard body ("spf": R = 0 impact-prefix, "ssl":
-sliced, ``batch_key``: blockdense / dense / candidate).  The
-candidate / dense and mesh results carry their int32 slots in the
-batch's f32 fetch bit for bit (``_pack_bits`` / ``unpack_bits``).
+the reference (ops/executor.py) through one route table.  A plan's
+group key (``_group_key``) names its route and static shape:
+
+- "pf", ``_dispatch_prefix``: the impact-prefix executor (R = 0
+  complete planes, and R > 0 planes whose uncertified rows re-run
+  classically -- a speculative sliced twin for ``search``, one
+  fallback sub-batch for the batch paths);
+- "sl", ``_dispatch_sliced``: the sliced executor (single, windowed,
+  dense-row hybrid, head merge, masked, masked dense-row hybrid);
+- "bd", ``_dispatch_blockdense``: the segsum kernel over every slot;
+- ``_Plan.batch_key``, ``_dispatch_plain``: the candidate and dense
+  executors (masked queries of more than 32 terms);
+- on a doc-sharded index (parallel.ShardedDeviceIndex, ``hasattr(dev,
+  "mesh")``), which the same planner plans per shard, every group
+  through ``_dispatch_mesh``'s shard bodies ("spf": R = 0
+  impact-prefix, "ssl": sliced, ``batch_key``: blockdense / dense /
+  candidate).
+
+Each route function, of the shape (dev, key, plans, sp, k, n_pad),
+packs its rows from the key, uploads them (``_upload``) and launches;
+``_dispatch`` picks it, ``_group_pad`` pads the rows, ``_count_route``
+counts them and ``_unpack`` reads the fetched layout.
+``execute_query`` (one row) and ``_submit_plans`` (a batch's groups,
+coalesced and chunked) are its two callers.  The prefix, sliced and
+blockdense routes read slots from the f32 pack, exact only below
+2**24 slots, and the planner gates them there; from 2**24 slots every
+plan takes the candidate and dense executors, which read the
+snapshot's exact int32 slot column (the reference's is rounded
+there).  Candidate / dense and mesh results carry their int32 slots
+in the batch's f32 fetch bit for bit (``_pack_bits``).
 
 NXS_PROFILE_GROUPS=1 logs each dispatch group's device time in
 dispatch order on the trace logger (CUDA events recorded after each
@@ -74,18 +85,6 @@ from .utils.trace import phase
 _PURE_OR_ROOT = Expr.leaf("<batched-pure-or>")
 
 _ALGO_BY_NAME = {"BM25": ALGO_BM25, "TF-IDF": ALGO_TFIDF}
-
-
-def _count_sliced(n: int, t_head: int, use_mask: bool,
-                  use_rows: bool) -> None:
-    _count("sliced", n)
-    if t_head:
-        _count("sliced_head", n)
-    if use_mask:
-        _count("sliced_masked", n)
-        if use_rows:
-            _count("sliced_masked_rows", n)
-
 
 _MAX_DENSE_PER_QUERY = 4
 
@@ -1362,9 +1361,11 @@ def _kernel_crows(dev, plan: _Plan,
     return q_crow
 
 
-def _upload(dev, buf: np.ndarray) -> torch.Tensor:
-    """One host->device copy of a group's packed int32 inputs."""
-    return torch.from_numpy(buf).to(dev.device)
+def _upload(dev, a: np.ndarray) -> torch.Tensor:
+    """One host->device copy of a group's host inputs, pageable: every
+    eager upload of the dispatch layer (a replayed prefix group stages
+    through its graph's pinned buffer instead, ops/graphs.py)."""
+    return torch.from_numpy(a).to(dev.device)
 
 
 def _prefix_graphs(dev, r: int):
@@ -1376,24 +1377,43 @@ def _prefix_graphs(dev, r: int):
     return dev.prefix_graphs
 
 
-def _dispatch_prefix(dev, sl_start, sl_len, sl_idf, pf_bits, pf_tail,
-                     pf_start, pf_len, pf_idf, *, sp: SearchParams,
-                     k: int, n_run: int, T: int):
-    """Dispatch one impact-prefix group ([n, qs] plan arrays, [n, R]
-    wide-term arrays); returns the packed device result f32[n, 3, k']
-    whose exact flags certify the first min(limit, k) rows.
+def _dispatch_prefix(dev, key: tuple, plans: list, sp: SearchParams,
+                     k: int, n_pad: int):
+    """Dispatch one impact-prefix group ("pf"): [n_pad, qs] plan arrays
+    and [n_pad, R] wide-term arrays of the key's widths (coalesced rows
+    re-pad); returns the packed device result f32[n_pad, 3, k'] whose
+    exact flags certify the first min(limit, k) rows.
 
     On a CUDA device a group runs eagerly the first time its signature
-    (the key: padded rows and every argument that fixes the chain's
-    shapes and constants) comes, is captured as a CUDA graph the second
-    time and replays from then on (``_prefix_graphs``); counted in
-    ``prefix.graph_eager``, ``prefix.graph_capture`` and
+    (the graph key: padded rows and every argument that fixes the
+    chain's shapes and constants) comes, is captured as a CUDA graph
+    the second time and replays from then on (``_prefix_graphs``);
+    counted in ``prefix.graph_eager``, ``prefix.graph_capture`` and
     ``prefix.graph_replay`` (utils/trace.GRAPH_COUNTERS)."""
     from .ops.executor import pack_prefix_group, prefix_topk_packed
+    _, qs_pad, T, r, n_run = key
+    sl_start = np.zeros((n_pad, qs_pad), dtype=np.int32)
+    sl_len = np.zeros((n_pad, qs_pad), dtype=np.int32)
+    sl_idf = np.zeros((n_pad, qs_pad), dtype=np.float32)
+    pf_bits = np.zeros((n_pad, qs_pad), dtype=np.int32)
+    pf_tail = np.zeros((n_pad, r), dtype=np.float32)
+    pf_start = np.zeros((n_pad, r), dtype=np.int32)
+    pf_len = np.zeros((n_pad, r), dtype=np.int32)
+    pf_idf = np.zeros((n_pad, r), dtype=np.float32)
+    for row, p in enumerate(plans):
+        w = len(p.sl_start)       # coalesced rows re-pad
+        r_p = len(p.pf_tail)
+        sl_start[row, :w] = p.sl_start
+        sl_len[row, :w] = p.sl_len
+        sl_idf[row, :w] = p.sl_idf
+        pf_bits[row, :w] = p.pf_bits
+        pf_tail[row, :r_p] = p.pf_tail
+        pf_start[row, :r_p] = p.pf_start
+        pf_len[row, :r_p] = p.pf_len
+        pf_idf[row, :r_p] = p.pf_idf
     buf = pack_prefix_group(sl_start, sl_len, sl_idf, pf_bits, pf_tail,
                             pf_start, pf_len, pf_idf)
-    r = pf_tail.shape[1]
-    kw = dict(qs=sl_start.shape[1], R=r, T=T, k=k, M=_prefix_m(sp, r),
+    kw = dict(qs=qs_pad, R=r, T=T, k=k, M=_prefix_m(sp, r),
               algo=sp.algo, n_slots=dev.n_slots, alive_all=dev.alive_all,
               n_run=n_run, k_ret=min(sp.limit, k))
     snapshot = pack, alive, adl = (dev.postings_pack, dev.alive_mask,
@@ -1407,21 +1427,19 @@ def _dispatch_prefix(dev, sl_start, sl_len, sl_idf, pf_bits, pf_tail,
         if dev.device.type == "cuda":
             _count("prefix.graph_eager")
         return launch(_upload(dev, buf))
-    key = tuple(kw.items()) + (("n_pad", sl_start.shape[0]),)
-    packed, how = graphs.run(key, snapshot, buf, launch)
+    packed, how = graphs.run(tuple(kw.items()) + (("n_pad", n_pad),),
+                             snapshot, buf, launch)
     _count("prefix.graph_" + how)
     return packed
 
 
-def _plain_inputs(dev, plans: list, n_pad: int) -> tuple:
+def _plain_inputs(dev, key: tuple, plans: list, n_pad: int) -> tuple:
     """The candidate / dense executors' arguments for plans of one
     ``batch_key``, rows padded to ``n_pad`` (zero-length ranges score
     nothing): the snapshot's columns, then q_start, q_len, q_idf, adl,
     prog_ops and prog_args on the device; and the posting lanes the
     rows hold (the sum of their q_len)."""
-    sample = plans[0]
-    q_pad = sample.q_start.shape[-1]
-    prog_len = len(sample.prog_ops)
+    q_pad, prog_len = key[:2]
     q_start = np.zeros((n_pad, q_pad), dtype=np.int32)
     q_len = np.zeros((n_pad, q_pad), dtype=np.int32)
     q_idf = np.zeros((n_pad, q_pad), dtype=np.float32)
@@ -1433,21 +1451,18 @@ def _plain_inputs(dev, plans: list, n_pad: int) -> tuple:
         q_idf[row] = p.q_idf
         prog_ops[row] = p.prog_ops
         prog_args[row] = p.prog_args
-
-    def put(a):
-        return torch.from_numpy(a).to(dev.device)
-
     return (dev.postings_slot, dev.postings_ltf, dev.doc_len,
-            dev.alive_mask, put(q_start), put(q_len), put(q_idf),
-            dev.adl_dev, put(prog_ops), put(prog_args)), int(q_len.sum())
+            dev.alive_mask, _upload(dev, q_start), _upload(dev, q_len),
+            _upload(dev, q_idf), dev.adl_dev, _upload(dev, prog_ops),
+            _upload(dev, prog_args)), int(q_len.sum())
 
 
-def _dispatch_plain(dev, plans: list, sp: SearchParams, k: int,
-                    n_pad: int):
+def _dispatch_plain(dev, key: tuple, plans: list, sp: SearchParams,
+                    k: int, n_pad: int):
     """Dispatch one candidate or dense group (plans of one
-    ``batch_key``); returns the packed device result f32[n_pad, 2, k']:
-    scores, and the int32 slots bit for bit (``unpack_bits``), exact
-    at any slot count.
+    ``batch_key``, the key); returns the packed device result
+    f32[n_pad, 2, k']: scores, and the int32 slots bit for bit
+    (``unpack_bits``), exact at any slot count.
 
     The ``submit.plain`` span covers the packing, the upload and the
     executor's launches (attrs ``rows``, ``budget``, ``dense``,
@@ -1456,80 +1471,121 @@ def _dispatch_plain(dev, plans: list, sp: SearchParams, k: int,
     (padded rows x ``budget``, or x ``n_slots`` for a dense group);
     ``plain.groups``, the dispatches."""
     from .ops.executor import device_search_batch, device_search_dense_batch
-    sample = plans[0]
-    dense = bool(sample.use_dense)
-    with phase("submit.plain", rows=len(plans), budget=sample.budget,
+    _q, _L, use_mask, dense, budget, depth = key
+    dense = bool(dense)
+    with phase("submit.plain", rows=len(plans), budget=budget,
                dense=dense) as span:
-        kw = dict(budget=sample.budget, k=k, algo=sp.algo,
-                  use_mask=sample.use_mask, depth=sample.depth)
+        kw = dict(budget=budget, k=k, algo=sp.algo, use_mask=use_mask,
+                  depth=depth)
         if dense:
             fn = device_search_dense_batch
             kw.update(n_slots=dev.n_slots, term_lens=np.max(
                 [p.q_len for p in plans], axis=0).tolist())
         else:
             fn = device_search_batch
-        inputs, lanes = _plain_inputs(dev, plans, n_pad)
+        inputs, lanes = _plain_inputs(dev, key, plans, n_pad)
         scores, slots = fn(*inputs, **kw)
         # Non-matches may carry the padding sentinel; zero them, as the
         # sliced result does.
         packed = _pack_bits(scores, torch.where(scores > 0.0, slots, 0))
         span.set(lanes=lanes)
     _count("plain.lanes", lanes)
-    _count("plain.plane_lanes",
-           n_pad * (dev.n_slots if dense else sample.budget))
+    _count("plain.plane_lanes", n_pad * (dev.n_slots if dense else budget))
     _count("plain.groups")
     return packed
 
 
-def _dispatch_sliced_single(dev, plan: _Plan, sp: SearchParams, k: int):
-    """Dispatch ONE query's sliced-executor call; returns the packed
-    device result f32[1, 2, k']."""
+def _dispatch_sliced(dev, key: tuple, plans: list, sp: SearchParams,
+                     k: int, n_pad: int):
+    """Dispatch one sliced group ("sl"); returns the packed device
+    result f32[n_pad, 2, k'].  The group's parameters come from the
+    key: coalesced groups carry widened maxima there, and member rows
+    re-pad below."""
     from .ops.executor import pack_sliced_group, sliced_topk_packed
-    use_mask = plan.use_mask
-    t_head = plan.h_T
-    use_rows = plan.use_rows
-    masked_rows = use_mask and use_rows
+    (_, qs_pad, T_g, L_key, use_mask_g, depth_g, single_g, use_rows_g,
+     t_head, n_run_g) = key
+    prog_len = L_key or 1
+    sl_start = np.zeros((n_pad, qs_pad), dtype=np.int32)
+    sl_len = np.zeros((n_pad, qs_pad), dtype=np.int32)
+    sl_idf = np.zeros((n_pad, qs_pad), dtype=np.float32)
+    sl_rows = np.zeros((n_pad, qs_pad), dtype=np.int32) \
+        if (n_run_g and use_mask_g) else None
+    if use_mask_g:
+        prog_ops = np.zeros((n_pad, prog_len), dtype=np.int32)
+        prog_args = np.zeros((n_pad, prog_len), dtype=np.int32)
+    if use_rows_g:
+        d_row = np.full((n_pad, _MAX_DENSE_PER_QUERY), -1, dtype=np.int32)
+        d_idf = np.zeros((n_pad, _MAX_DENSE_PER_QUERY), dtype=np.float32)
+    masked_rows = bool(use_mask_g and use_rows_g)
+    if masked_rows:
+        d_bit = np.full((n_pad, _MAX_DENSE_PER_QUERY), -1, dtype=np.int32)
+        d_pass = np.zeros((n_pad, 1 << _MAX_DENSE_PER_QUERY),
+                          dtype=np.bool_)
+    if t_head:
+        h_start = np.zeros(n_pad, dtype=np.int32)
+        h_len = np.zeros(n_pad, dtype=np.int32)
+        h_idf = np.zeros(n_pad, dtype=np.float32)
+        h_row = np.zeros(n_pad, dtype=np.int32)
+        h_pass = np.zeros(n_pad, dtype=np.bool_)
+    for row, p in enumerate(plans):
+        w = len(p.sl_start)
+        sl_start[row, :w] = p.sl_start
+        sl_len[row, :w] = p.sl_len
+        sl_idf[row, :w] = p.sl_idf
+        if sl_rows is not None:
+            sl_rows[row, :w] = p.sl_rows
+        if use_mask_g:
+            lp = len(p.prog_ops)
+            prog_ops[row, :lp] = p.prog_ops
+            prog_args[row, :lp] = p.prog_args
+        if use_rows_g and p.d_row is not None:
+            d_row[row] = p.d_row
+            d_idf[row] = p.d_idf
+        if masked_rows:
+            d_bit[row] = p.d_qpos
+            if p.d_pass is not None:
+                d_pass[row] = p.d_pass
+        if t_head and p.h_T:
+            h_start[row] = p.h_start
+            h_len[row] = p.h_len
+            h_idf[row] = p.h_idf
+            h_row[row] = p.h_row
+            h_pass[row] = p.h_pass
     buf = pack_sliced_group(
-        plan.sl_start[None], plan.sl_len[None], plan.sl_idf[None],
-        plan.prog_ops[None] if use_mask else None,
-        plan.prog_args[None] if use_mask else None,
-        plan.d_row[None] if use_rows else None,
-        plan.d_idf[None] if use_rows else None,
-        np.asarray([plan.h_start], np.int32) if t_head else None,
-        np.asarray([plan.h_len], np.int32) if t_head else None,
-        np.asarray([plan.h_idf], np.float32) if t_head else None,
-        np.asarray([plan.h_row], np.int32) if t_head else None,
-        np.asarray([plan.h_pass], np.bool_) if t_head else None,
-        plan.sl_rows[None] if (use_mask and plan.n_run) else None,
-        plan.d_qpos[None] if masked_rows else None,
-        plan.d_pass[None] if masked_rows else None)
+        sl_start, sl_len, sl_idf,
+        prog_ops if use_mask_g else None,
+        prog_args if use_mask_g else None,
+        d_row if use_rows_g else None,
+        d_idf if use_rows_g else None,
+        h_start if t_head else None, h_len if t_head else None,
+        h_idf if t_head else None, h_row if t_head else None,
+        h_pass if t_head else None, sl_rows,
+        d_bit if masked_rows else None,
+        d_pass if masked_rows else None)
     return sliced_topk_packed(
         dev.postings_pack, dev.alive_mask, dev.doc_len, _upload(dev, buf),
-        dev.adl_dev, dev.dense_rows if use_rows else None,
-        qs=len(plan.sl_start), L=len(plan.prog_ops),
-        D=_MAX_DENSE_PER_QUERY, T=plan.sl_T, k=k, algo=sp.algo,
-        n_slots=dev.n_slots, use_mask=use_mask, single=plan.single,
-        alive_all=dev.alive_all, use_rows=use_rows, depth=plan.depth,
-        T_head=t_head, n_run=plan.n_run)
+        dev.adl_dev, dev.dense_rows if use_rows_g else None,
+        qs=qs_pad, L=prog_len, D=_MAX_DENSE_PER_QUERY, T=T_g, k=k,
+        algo=sp.algo, n_slots=dev.n_slots, use_mask=use_mask_g,
+        single=single_g, alive_all=dev.alive_all, use_rows=use_rows_g,
+        depth=depth_g, T_head=t_head, n_run=n_run_g)
 
 
-def _dispatch_blockdense(dev, plans: list, sp: SearchParams, k: int,
-                         n_pad: int):
+def _dispatch_blockdense(dev, key: tuple, plans: list, sp: SearchParams,
+                         k: int, n_pad: int):
     """Dispatch one blockdense group (plans of one ("bd", ...)
     signature, rows padded to ``n_pad``); returns the packed device
     result f32[n_pad, 2, k'].  The bounds-cache lock is held from
     ``bounds_crows`` until the kernel that reads the rows is enqueued
     (DeviceIndex.bounds_crows)."""
     with dev._bounds_lock:
-        return _dispatch_blockdense_locked(dev, plans, sp, k, n_pad)
+        return _dispatch_blockdense_locked(dev, key, plans, sp, k, n_pad)
 
 
-def _dispatch_blockdense_locked(dev, plans: list, sp: SearchParams, k: int,
-                                n_pad: int):
+def _dispatch_blockdense_locked(dev, key: tuple, plans: list,
+                                sp: SearchParams, k: int, n_pad: int):
     from .ops.executor import blockdense_core
-    sample = plans[0]
-    q_pad = sample.q_start.shape[-1]
-    prog_len = len(sample.prog_ops)
+    _, q_pad, prog_len, use_mask, depth, use_rows = key
     q_idf = np.zeros((n_pad, q_pad), dtype=np.float32)
     prog_ops = np.zeros((n_pad, prog_len), dtype=np.int32)
     prog_args = np.zeros((n_pad, prog_len), dtype=np.int32)
@@ -1551,17 +1607,13 @@ def _dispatch_blockdense_locked(dev, plans: list, sp: SearchParams, k: int,
             d_qpos[row] = p.d_qpos
             d_row[row] = p.d_row
         q_crow[row] = _kernel_crows(dev, p, crow_map)
-
-    def put(a):
-        return torch.from_numpy(a).to(dev.device)
-
     return blockdense_core(
         dev.postings_slot, dev.postings_ltf, dev.doc_len, dev.alive_mask,
-        dev._bounds_cache, put(q_crow), put(q_idf), dev.adl_dev,
-        put(prog_ops), put(prog_args), dev.dense_rows, put(d_qpos),
-        put(d_row), k=k, algo=sp.algo, n_slots=dev.n_slots,
-        use_mask=sample.use_mask, depth=sample.depth,
-        use_rows=sample.use_rows)
+        dev._bounds_cache, _upload(dev, q_crow), _upload(dev, q_idf),
+        dev.adl_dev, _upload(dev, prog_ops), _upload(dev, prog_args),
+        dev.dense_rows, _upload(dev, d_qpos), _upload(dev, d_row), k=k,
+        algo=sp.algo, n_slots=dev.n_slots, use_mask=use_mask, depth=depth,
+        use_rows=use_rows)
 
 
 def _dispatch_mesh(dev, key: tuple, plans: list, sp: SearchParams, k: int,
@@ -1569,11 +1621,11 @@ def _dispatch_mesh(dev, key: tuple, plans: list, sp: SearchParams, k: int,
     """Dispatch one group of a doc-sharded index (parallel.sharded):
     "spf" (R = 0 impact-prefix), "ssl" (sliced) or a ``batch_key``
     group (the blockdense, dense or candidate body), rows padded to
-    ``n_pad``; counts its rows.  Returns f32[n_pad, 2, k']: scores, and
+    ``n_pad``.  Returns f32[n_pad, 2, k']: scores, and
     the int32 global slots bit for bit (``_pack_bits``) -- global slots
     may pass 2**24."""
     from .parallel import sharded as mesh_exec
-    n, n_dev = len(plans), dev.n_dev
+    n_dev = dev.n_dev
     sample = plans[0]
     # Window columns ("spf": the coalesced width) or query terms.
     q_pad = key[1] if key[0] in ("spf", "ssl") else key[0]
@@ -1592,9 +1644,6 @@ def _dispatch_mesh(dev, key: tuple, plans: list, sp: SearchParams, k: int,
             dev.adl, mesh=dev.mesh, T=T_g, k=k, algo=sp.algo,
             alive_all=dev.alive_all, n_run=n_run_g,
             k_ret=min(sp.limit, k))
-        _count("prefix", n)
-        _count("prefix_exact", n)
-        _count("sharded_prefix", n)
         return _pack_bits(scores, slots)
     prog_len = len(sample.prog_ops)
     prog_ops = np.zeros((n_pad, prog_len), dtype=np.int32)
@@ -1638,7 +1687,6 @@ def _dispatch_mesh(dev, key: tuple, plans: list, sp: SearchParams, k: int,
             use_mask=sample.use_mask, single=sample.single,
             alive_all=dev.alive_all, depth=sample.depth,
             n_run=sample.n_run, T_head=t_head, use_rows=use_rows, **h_kw)
-        _count("sharded_sliced", n)
         return _pack_bits(scores, slots)
     for row, p in enumerate(plans):
         q_start[:, row] = p.q_start
@@ -1653,7 +1701,6 @@ def _dispatch_mesh(dev, key: tuple, plans: list, sp: SearchParams, k: int,
         use_mask=sample.use_mask, depth=sample.depth,
         use_kernel=_sharded_kernel(sample, dev),
         use_dense=sample.use_dense)
-    _count("sharded_fallback", n)
     return _pack_bits(scores, slots)
 
 
@@ -1671,71 +1718,111 @@ def unpack_bits(arr: np.ndarray):
     return arr[:, 0, :], arr[:, 1, :].view(np.int32)
 
 
+def _dispatch(dev, key: tuple, plans: list, sp: SearchParams, k: int,
+              n_pad: int) -> tuple:
+    """Run one dispatch group ``key`` (``_group_key``) of ``plans``,
+    rows padded to ``n_pad``, through its route's function (the route
+    table of the module's docstring); returns the packed device result
+    and its layout's tag for ``_unpack``.  Counts nothing:
+    ``_count_route`` does."""
+    if hasattr(dev, "mesh"):
+        return _dispatch_mesh(dev, key, plans, sp, k, n_pad), "mesh"
+    if key[0] == "pf":
+        return _dispatch_prefix(dev, key, plans, sp, k, n_pad), "prefix"
+    if key[0] == "sl":
+        return _dispatch_sliced(dev, key, plans, sp, k, n_pad), "sliced"
+    if key[0] == "bd":
+        return _dispatch_blockdense(dev, key, plans, sp, k, n_pad), "bd"
+    return _dispatch_plain(dev, key, plans, sp, k, n_pad), "plain"
+
+
+def _count_route(dev, key: tuple, n: int) -> None:
+    """Bump the route counters of ``n`` rows dispatched as group
+    ``key`` (a mesh's R = 0 prefix rows are exact by construction)."""
+    route = key[0]
+    if route == "spf":
+        _count("prefix", n)
+        _count("prefix_exact", n)
+        _count("sharded_prefix", n)
+    elif route == "ssl":
+        _count("sharded_sliced", n)
+    elif hasattr(dev, "mesh"):
+        _count("sharded_fallback", n)
+    elif route == "pf":
+        _count("prefix", n)
+    elif route == "sl":
+        _count("sliced", n)
+        use_mask, use_rows, t_head = key[4], key[7], key[8]
+        if t_head:
+            _count("sliced_head", n)
+        if use_mask:
+            _count("sliced_masked", n)
+            if use_rows:
+                _count("sliced_masked_rows", n)
+    elif route == "bd":
+        _count("blockdense", n)
+    else:
+        _count("dense" if key[3] else "candidate", n)
+
+
+def _unpack(tag: str, arr: np.ndarray, n: int) -> tuple:
+    """A group's fetched result -> (scores f32[n, k], slots int32[n,
+    k], exact bool[n] or None) for its ``n`` members (the rows past
+    them pad).  Only a prefix group certifies its rows."""
+    from .ops.executor import unpack_prefix, unpack_sliced
+    if tag == "prefix":
+        return unpack_prefix(arr[:n])
+    if tag in ("mesh", "plain"):
+        return (*unpack_bits(arr[:n]), None)
+    # Every other route shares the sliced [N, 2, k] layout.
+    return (*unpack_sliced(arr[:n]), None)
+
+
+def _fetch_groups(dev, pending: list) -> tuple:
+    """Start the one device->host copy of dispatched groups (members,
+    packed result, tag), once the snapshot's derived slot / ltf
+    columns, which a blockdense, candidate or dense group read, may
+    go."""
+    if any(tag in ("bd", "plain") for _m, _p, tag in pending):
+        dev.drop_legacy_cols()
+    return _fetch_start([p[1] for p in pending])
+
+
 def execute_query(dev, query: Query, sp: SearchParams,
                   no_prefix: bool = False) -> Response:
     """Run one prepared query against the device snapshot
     (``no_prefix``: plan classically, as an uncertified prefix row's
-    re-run does)."""
-    from .ops.executor import unpack_prefix, unpack_sliced
+    re-run does): its group key, one row through ``_dispatch``, one
+    fetch."""
     plan = _build_plan(dev, query, sp, no_prefix=no_prefix)
     if plan is None:
         return Response()
     k = _bucket(min(sp.limit, dev.n_slots), _MIN_K)
-    sharded = hasattr(dev, "mesh")
-    if sharded:
-        key = _group_key(plan, dev)
-        scores, slots = unpack_bits(
-            _dispatch_mesh(dev, key, [plan], sp, k, 1).cpu().numpy())
-        return _to_response(dev, scores[0], slots[0], sp.limit,
-                            delta=_delta_results(dev, plan, sp))
-    if plan.pf:
-        packed = [_dispatch_prefix(
-            dev, plan.sl_start[None], plan.sl_len[None], plan.sl_idf[None],
-            plan.pf_bits[None], plan.pf_tail[None], plan.pf_start[None],
-            plan.pf_len[None], plan.pf_idf[None], sp=sp, k=k,
-            n_run=plan.n_run, T=plan.sl_T)]
-        _count("prefix")
-        cplan = None
-        if len(plan.pf_tail):
-            # Wide terms: the certificate can fail, so the classic twin
-            # runs speculatively beside it and both come back in one
-            # device->host copy.
-            cplan = _build_plan(dev, query, sp, no_prefix=True)
-            if cplan is not None and _use_sliced(cplan, sharded, dev):
-                packed.append(_dispatch_sliced_single(dev, cplan, sp, k))
-        arrays = _fetch_finish(_fetch_start(packed))
-        scores, slots, exact = unpack_prefix(arrays[0])
-        if exact[0]:
-            _count("prefix_exact")
-            return _to_response(dev, scores[0], slots[0], sp.limit,
-                                delta=_delta_results(dev, plan, sp))
+    key = _group_key(plan, dev)
+    packed, tag = _dispatch(dev, key, [plan], sp, k, 1)
+    _count_route(dev, key, 1)
+    pending = [([0], packed, tag)]
+    if tag == "prefix" and len(plan.pf_tail):
+        # Wide terms: the certificate can fail, so the classic twin
+        # runs speculatively beside it and both come back in one
+        # device->host copy.
+        cplan = _build_plan(dev, query, sp, no_prefix=True)
+        ckey = None if cplan is None else _group_key(cplan, dev)
+        if ckey is not None and ckey[0] == "sl":
+            pending.append(([0], *_dispatch(dev, ckey, [cplan], sp, k, 1)))
+    arrays = _fetch_finish(_fetch_groups(dev, pending))
+    scores, slots, exact = _unpack(tag, arrays[0], 1)
+    if exact is not None and exact[0]:
+        _count("prefix_exact")
+    elif exact is not None:
         _count("prefix_fallback")
         if len(arrays) == 1:
             # No twin was eligible: the classic plan is exact.
             return execute_query(dev, query, sp, no_prefix=True)
         _count("prefix_spec_used")
-        _count_sliced(1, cplan.h_T, cplan.use_mask, cplan.use_rows)
-        scores, slots = unpack_sliced(arrays[1])
-        return _to_response(dev, scores[0], slots[0], sp.limit,
-                            delta=_delta_results(dev, cplan, sp))
-    if _use_sliced(plan, sharded, dev):
-        packed = _dispatch_sliced_single(dev, plan, sp, k)
-        scores, slots = unpack_sliced(packed.cpu().numpy())
-        _count_sliced(1, plan.h_T, plan.use_mask, plan.use_rows)
-        return _to_response(dev, scores[0], slots[0], sp.limit,
-                            delta=_delta_results(dev, plan, sp))
-    if _use_blockdense(plan, sharded, dev.n_slots):
-        from .ops.executor import unpack_blockdense
-        packed = _dispatch_blockdense(dev, [plan], sp, k, 1)
-        dev.drop_legacy_cols()
-        scores, slots = unpack_blockdense(packed.cpu().numpy())
-        _count("blockdense")
-        return _to_response(dev, scores[0], slots[0], sp.limit,
-                            delta=_delta_results(dev, plan, sp))
-    packed = _dispatch_plain(dev, [plan], sp, k, 1)
-    dev.drop_legacy_cols()
-    scores, slots = unpack_bits(packed.cpu().numpy())
-    _count("dense" if plan.use_dense else "candidate")
+        _count_route(dev, ckey, 1)
+        plan = cplan
+        scores, slots, _ = _unpack("sliced", arrays[1], 1)
     return _to_response(dev, scores[0], slots[0], sp.limit,
                         delta=_delta_results(dev, plan, sp))
 
@@ -1986,14 +2073,29 @@ def _group_rows_cap(dev, key: tuple) -> int:
     return max_n
 
 
+def _group_pad(dev, key: tuple, n: int) -> int:
+    """Rows one dispatch of ``n`` members of group ``key`` pads to, on
+    one device or a mesh (``_row_pad``'s grids).  Candidate / dense
+    groups, and a mesh's ``batch_key`` groups, never pad past their
+    row cap, which bounds their [rows, budget] and [rows, S_pad]
+    planes, per shard on a mesh: the cap falls below the grid's floor
+    of 8 rows for dense groups past 2**23 slots and for candidate
+    budgets of 2**24."""
+    if key[0] in ("pf", "spf"):
+        return _row_pad(n, key[1], key[2], pf=True)
+    if key[0] == "sl":
+        return _row_pad(n, key[1], key[2])
+    if isinstance(key[0], str):
+        return _row_pad(n)
+    return min(_row_pad(n), _group_rows_cap(dev, key))
+
+
 def _submit_plans(dev, plans: list, queries: list[Query],
                   sp: SearchParams) -> _PendingBatch:
-    """Group and dispatch already-built plans (pf, sl, bd, candidate and
-    dense routes): group, chunk, pack, upload and launch, and start the
-    batch's copy; the ``batch.submit`` span, with the batch's rows and
-    dispatch groups."""
-    from .ops.executor import pack_sliced_group, sliced_topk_packed
-
+    """Group and dispatch already-built plans: group, coalesce, chunk,
+    ``_dispatch`` each chunk and start the batch's copy; the
+    ``batch.submit`` span, with the batch's rows and dispatch
+    groups."""
     with phase("batch.submit", rows=len(plans)) as span:
         responses: list[Optional[Response]] = [
             Response() if p is None else None for p in plans]
@@ -2013,157 +2115,19 @@ def _submit_plans(dev, plans: list, queries: list[Query],
                 chunked.append((key, members[at: at + max_n]))
 
         pending = []
-        sharded = hasattr(dev, "mesh")
         marks = [] if os.environ.get("NXS_PROFILE_GROUPS") else None
         for key, members in chunked:
             n = len(members)
             if marks is not None:         # after the previous group's launch
                 marks.append(_group_mark(dev))
-            if sharded:                      # "spf", "ssl" or batch_key
-                # A batch_key group's rows pad no further than its row cap,
-                # as on one device: its [rows, Ss] planes per shard stay
-                # under the cap (8 padded rows of a 2**25-slot shard were 4x
-                # it).
-                packed = _dispatch_mesh(
-                    dev, key, [plans[i] for i in members], sp, k,
-                    _row_pad(n, key[1], key[2], pf=True) if key[0] == "spf"
-                    else _row_pad(n) if key[0] == "ssl"
-                    else min(_row_pad(n), _group_rows_cap(dev, key)))
-                pending.append((members, packed, "mesh"))
-                continue
-            if key[0] == "pf":
-                _, qs_pad, T_g, r_pad, n_run_g = key
-                n_pad = _row_pad(n, qs_pad, T_g, pf=True)
-                sl_start = np.zeros((n_pad, qs_pad), dtype=np.int32)
-                sl_len = np.zeros((n_pad, qs_pad), dtype=np.int32)
-                sl_idf = np.zeros((n_pad, qs_pad), dtype=np.float32)
-                pf_bits = np.zeros((n_pad, qs_pad), dtype=np.int32)
-                pf_tail = np.zeros((n_pad, r_pad), dtype=np.float32)
-                pf_start = np.zeros((n_pad, r_pad), dtype=np.int32)
-                pf_len = np.zeros((n_pad, r_pad), dtype=np.int32)
-                pf_idf = np.zeros((n_pad, r_pad), dtype=np.float32)
-                for row, i in enumerate(members):
-                    p = plans[i]
-                    w = len(p.sl_start)       # coalesced rows re-pad
-                    r = len(p.pf_tail)
-                    sl_start[row, :w] = p.sl_start
-                    sl_len[row, :w] = p.sl_len
-                    sl_idf[row, :w] = p.sl_idf
-                    pf_bits[row, :w] = p.pf_bits
-                    pf_tail[row, :r] = p.pf_tail
-                    pf_start[row, :r] = p.pf_start
-                    pf_len[row, :r] = p.pf_len
-                    pf_idf[row, :r] = p.pf_idf
-                packed = _dispatch_prefix(
-                    dev, sl_start, sl_len, sl_idf, pf_bits, pf_tail, pf_start,
-                    pf_len, pf_idf, sp=sp, k=k, n_run=n_run_g, T=T_g)
-                _count("prefix", n)
-                pending.append((members, packed, "prefix"))
-                continue
-            if key[0] == "bd":
-                packed = _dispatch_blockdense(
-                    dev, [plans[i] for i in members], sp, k, _row_pad(n))
-                _count("blockdense", n)
-                pending.append((members, packed, "bd"))
-                continue
-            if not isinstance(key[0], str):
-                # Rows pad on the grid but never past the group's row cap,
-                # which bounds its [rows, budget] candidate planes and its
-                # [rows, S_pad] dense plane (the cap falls below the grid's
-                # floor of 8 rows for dense groups past 2**23 slots and for
-                # candidate budgets of 2**24).
-                packed = _dispatch_plain(
-                    dev, [plans[i] for i in members], sp, k,
-                    min(_row_pad(n), _group_rows_cap(dev, key)))
-                _count("dense" if key[3] else "candidate", n)
-                pending.append((members, packed, "plain"))
-                continue
-            # Group params come from the KEY: coalesced groups carry
-            # widened maxima there, and member rows re-pad below.
-            (_, qs_pad, T_g, L_key, use_mask_g, depth_g, single_g, use_rows_g,
-             t_head, n_run_g) = key
-            prog_len = L_key or 1
-            n_pad = _row_pad(n, qs_pad, T_g)
-            sl_start = np.zeros((n_pad, qs_pad), dtype=np.int32)
-            sl_len = np.zeros((n_pad, qs_pad), dtype=np.int32)
-            sl_idf = np.zeros((n_pad, qs_pad), dtype=np.float32)
-            sl_rows = np.zeros((n_pad, qs_pad), dtype=np.int32) \
-                if (n_run_g and use_mask_g) else None
-            if use_mask_g:
-                prog_ops = np.zeros((n_pad, prog_len), dtype=np.int32)
-                prog_args = np.zeros((n_pad, prog_len), dtype=np.int32)
-            if use_rows_g:
-                d_row = np.full((n_pad, _MAX_DENSE_PER_QUERY), -1,
-                                dtype=np.int32)
-                d_idf = np.zeros((n_pad, _MAX_DENSE_PER_QUERY),
-                                 dtype=np.float32)
-            masked_rows = bool(use_mask_g and use_rows_g)
-            if masked_rows:
-                d_bit = np.full((n_pad, _MAX_DENSE_PER_QUERY), -1,
-                                dtype=np.int32)
-                d_pass = np.zeros((n_pad, 1 << _MAX_DENSE_PER_QUERY),
-                                  dtype=np.bool_)
-            if t_head:
-                h_start = np.zeros(n_pad, dtype=np.int32)
-                h_len = np.zeros(n_pad, dtype=np.int32)
-                h_idf = np.zeros(n_pad, dtype=np.float32)
-                h_row = np.zeros(n_pad, dtype=np.int32)
-                h_pass = np.zeros(n_pad, dtype=np.bool_)
-            for row, i in enumerate(members):
-                p = plans[i]
-                w = len(p.sl_start)
-                sl_start[row, :w] = p.sl_start
-                sl_len[row, :w] = p.sl_len
-                sl_idf[row, :w] = p.sl_idf
-                if sl_rows is not None:
-                    sl_rows[row, :w] = p.sl_rows
-                if use_mask_g:
-                    lp = len(p.prog_ops)
-                    prog_ops[row, :lp] = p.prog_ops
-                    prog_args[row, :lp] = p.prog_args
-                if use_rows_g and p.d_row is not None:
-                    d_row[row] = p.d_row
-                    d_idf[row] = p.d_idf
-                if masked_rows:
-                    d_bit[row] = p.d_qpos
-                    if p.d_pass is not None:
-                        d_pass[row] = p.d_pass
-                if t_head and p.h_T:
-                    h_start[row] = p.h_start
-                    h_len[row] = p.h_len
-                    h_idf[row] = p.h_idf
-                    h_row[row] = p.h_row
-                    h_pass[row] = p.h_pass
-            buf = pack_sliced_group(
-                sl_start, sl_len, sl_idf,
-                prog_ops if use_mask_g else None,
-                prog_args if use_mask_g else None,
-                d_row if use_rows_g else None,
-                d_idf if use_rows_g else None,
-                h_start if t_head else None, h_len if t_head else None,
-                h_idf if t_head else None, h_row if t_head else None,
-                h_pass if t_head else None, sl_rows,
-                d_bit if masked_rows else None,
-                d_pass if masked_rows else None)
-            packed = sliced_topk_packed(
-                dev.postings_pack, dev.alive_mask, dev.doc_len,
-                _upload(dev, buf), dev.adl_dev,
-                dev.dense_rows if use_rows_g else None,
-                qs=qs_pad, L=prog_len, D=_MAX_DENSE_PER_QUERY, T=T_g, k=k,
-                algo=sp.algo, n_slots=dev.n_slots, use_mask=use_mask_g,
-                single=single_g, alive_all=dev.alive_all,
-                use_rows=use_rows_g, depth=depth_g, T_head=t_head,
-                n_run=n_run_g)
-            _count_sliced(n, t_head, use_mask_g, use_rows_g)
-            pending.append((members, packed, "sliced"))
+            packed, tag = _dispatch(dev, key, [plans[i] for i in members],
+                                    sp, k, _group_pad(dev, key, n))
+            _count_route(dev, key, n)
+            pending.append((members, packed, tag))
 
         if marks is not None:
             marks.append(_group_mark(dev))
-        if any(tag in ("bd", "plain") for _m, _p, tag in pending):
-            # A blockdense, candidate or dense group read the derived slot /
-            # ltf columns.
-            dev.drop_legacy_cols()
-        fetch = _fetch_start([p[1] for p in pending]) if pending else None
+        fetch = _fetch_groups(dev, pending) if pending else None
         span.set(groups=len(pending))
         return _PendingBatch(plans=plans, responses=responses,
                              pending=pending, fetch=fetch, queries=queries,
@@ -2261,26 +2225,15 @@ def _respond(dev, st: _PendingBatch, arrays: list,
              sp: SearchParams) -> list[int]:
     """Unpack each group's fetched results into ``st.responses``;
     returns the uncertified prefix rows."""
-    from .ops.executor import unpack_prefix, unpack_sliced
-
     fallback_ix: list[int] = []
     for (members, _packed, tag), arr in zip(st.pending, arrays):
-        n = len(members)
-        if tag == "prefix":
-            scores, slots, exact = unpack_prefix(arr)
-            ok = exact[:n]
+        scores, slots, ok = _unpack(tag, arr, len(members))
+        if ok is not None:
             _count("prefix_exact", int(ok.sum()))
-            scores, slots = scores[:n], slots[:n]
             if not ok.all():
                 fallback_ix.extend(members[r] for r in np.nonzero(~ok)[0])
                 members = [i for r, i in enumerate(members) if ok[r]]
                 scores, slots = scores[ok], slots[ok]
-        elif tag in ("mesh", "plain"):
-            scores, slots = unpack_bits(arr[:n])
-        else:
-            # Every other route shares the sliced [N, 2, k] layout.
-            scores, slots = unpack_sliced(arr)
-            scores, slots = scores[:n], slots[:n]
         _to_responses_group(dev, members, scores, slots, st.plans, sp,
                             st.responses)
     return fallback_ix

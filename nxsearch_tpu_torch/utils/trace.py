@@ -58,15 +58,17 @@ _DEBUG = logging.DEBUG
 
 # -- counters --------------------------------------------------------------
 
-# Executor-path counters (observability; reset freely).  Keys:
-# prefix / prefix_exact / sliced / sliced_head / blockdense /
-# candidate / dense count QUERIES routed through each path,
-# prefix_fallback the uncertified prefix rows re-run classically and
-# prefix_spec_used those a speculative twin answered, sliced_masked /
-# sliced_masked_rows the masked sliced rows and those of them on the
-# masked dense-row hybrid; coalesced / coalesced_pf count rows merged
-# into widened groups; sharded_prefix / sharded_sliced /
-# sharded_fallback count a mesh's rows by shard body.  The collector
+# Executor-path counters (observability; reset freely).  The route
+# counters, ROUTE_COUNTERS: prefix / prefix_exact / sliced /
+# sliced_head / blockdense / candidate / dense count QUERIES routed
+# through each path, prefix_fallback the uncertified prefix rows re-run
+# classically and prefix_spec_used those a speculative twin answered,
+# sliced_masked / sliced_masked_rows the masked sliced rows and those
+# of them on the masked dense-row hybrid; coalesced / coalesced_pf
+# count rows merged into widened groups; sharded_prefix /
+# sharded_sliced / sharded_fallback count a mesh's rows by shard body
+# (search._count_route bumps the routes; the reference's EXEC_STATS
+# keeps the same names, less the two sliced_masked ones).  The collector
 # hook and the collector hold add GC_COUNTERS; the candidate and dense
 # dispatch groups (search._dispatch_plain) add PLAIN_COUNTERS: the
 # posting lanes their rows hold, the lanes of their planes as
@@ -75,6 +77,11 @@ _DEBUG = logging.DEBUG
 # that replayed a captured CUDA graph, that captured one, and that ran
 # eagerly.
 COUNTERS: dict[str, int] = {}
+ROUTE_COUNTERS = ("prefix", "prefix_exact", "prefix_fallback",
+                  "prefix_spec_used", "sliced", "sliced_head",
+                  "sliced_masked", "sliced_masked_rows", "blockdense",
+                  "candidate", "dense", "coalesced", "coalesced_pf",
+                  "sharded_prefix", "sharded_sliced", "sharded_fallback")
 GC_COUNTERS = ("gc.gen0", "gc.gen1", "gc.gen2", "gc.us", "gc.hold",
                "gc.hold_collect")
 PLAIN_COUNTERS = ("plain.lanes", "plain.plane_lanes", "plain.groups")

@@ -28,7 +28,7 @@ import nxsearch_tpu
 import nxsearch_tpu.search as jsearch
 import nxsearch_tpu_torch
 from nxsearch_tpu_torch import search as psearch
-from nxsearch_tpu_torch.utils.trace import GC_COUNTERS, PLAIN_COUNTERS
+from nxsearch_tpu_torch.utils.trace import ROUTE_COUNTERS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIER = ["--docs", "20000", "--vocab", "6000", "--mean-len", "20"]
@@ -143,7 +143,7 @@ def test_route_counters_equal_reference(at_cache, monkeypatch):
             assert len(got) == N_TRACE
             counters.append(dict(sorted(
                 (k, v) for k, v in stats.items()
-                if k not in GC_COUNTERS + PLAIN_COUNTERS)))
+                if k in ROUTE_COUNTERS)))
         finally:
             nxs.close()
     ref, port = counters

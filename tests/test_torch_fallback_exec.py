@@ -309,7 +309,8 @@ def test_plain_routes_refused_from_2_24_slots():
     for use_dense in (False, True):
         plans = [large_slots_corpus.plain_plan(t, use_dense)
                  for t in range(3)]
-        packed = psearch._dispatch_plain(dev, plans, sp, K, 3)
+        key = psearch._Plan.batch_key.fget(plans[0])
+        packed = psearch._dispatch_plain(dev, key, plans, sp, K, 3)
         arr, = psearch._fetch_finish(psearch._fetch_start([packed]))
         scores, got = psearch.unpack_bits(arr)
         assert got[:, 0].tolist() == slots, use_dense
@@ -481,15 +482,18 @@ def test_search_pipelined_matches_reference(pair, router):
 ROUTES = ("prefix", "sliced", "blockdense", "candidate", "dense")
 
 
+@pytest.mark.parametrize("entry", ["search", "search_many"])
 @pytest.mark.parametrize("route", ROUTES)
-def test_single_query_counts_its_route(pair, monkeypatch, route):
-    """Every route of ``Index.search`` bumps exactly one route counter:
-    a pure-OR BM25 query the prefix one, the same query in TF-IDF the
-    sliced one, a masked query over a dense-row term with the masked
-    hybrid off the blockdense one (the candidate one with
-    ``_use_blockdense`` patched to False), and a > 32-term masked query
-    the dense one."""
-    _jidx, pidx = pair
+def test_single_query_counts_its_route(pair, monkeypatch, route, entry):
+    """Every route bumps exactly one route counter, once, whether the
+    query comes through ``Index.search`` or alone through
+    ``Index.search_many``, and answers as the reference does through the
+    same entry point: a pure-OR BM25 query the prefix one, the same
+    query in TF-IDF the sliced one, a masked query over a dense-row
+    term with the masked hybrid off the blockdense one (the candidate
+    one with ``_use_blockdense`` patched to False), and a > 32-term
+    masked query the dense one."""
+    jidx, pidx = pair
     words, _probs = _vocab()
     heavy = str(words[0])
     query, algo = {
@@ -499,13 +503,22 @@ def test_single_query_counts_its_route(pair, monkeypatch, route):
         "candidate": (f"{heavy} AND w00100", "BM25"),
         "dense": (wide_masked(np.random.default_rng(5), 1)[0], "BM25"),
     }[route]
+    monkeypatch.setattr(jsearch, "_MASKED_HYBRID", False)
     monkeypatch.setattr(psearch, "_MASKED_HYBRID", False)
     if route == "candidate":
         monkeypatch.setattr(psearch, "_use_blockdense",
                             lambda *a, **kw: False)
+
+    def run(idx, params):
+        params = params.set_uint("limit", 10).set_str("algo", algo)
+        if entry == "search":
+            return idx.search(query, params)
+        got, = idx.search_many([query], params)
+        return got
+
     psearch.EXEC_STATS.clear()
-    got = pidx.search(query, nxsearch_tpu_torch.Params().set_uint(
-        "limit", 10).set_str("algo", algo))
+    got = run(pidx, nxsearch_tpu_torch.Params())
     assert len(got.results) > 0
     assert {key: psearch.EXEC_STATS.get(key, 0) for key in ROUTES} == \
         {key: int(key == route) for key in ROUTES}
+    assert_same(run(jidx, nxsearch_tpu.Params()), got, query)

@@ -33,7 +33,7 @@ from nxsearch_tpu_torch import search as psearch
 from nxsearch_tpu_torch.index.device import DeviceIndex
 from nxsearch_tpu_torch.parallel import make_mesh
 from nxsearch_tpu_torch.parallel import sharded as psharded
-from nxsearch_tpu_torch.utils.trace import GC_COUNTERS, PLAIN_COUNTERS
+from nxsearch_tpu_torch.utils.trace import ROUTE_COUNTERS
 from nxsearch_tpu_torch.query.ast import (EXPR_OP_AND, EXPR_OP_OR,
                                           EXPR_VAL_TOKEN)
 from nxsearch_tpu_torch.query.parser import parse_query
@@ -263,7 +263,7 @@ def test_mesh_shard_past_2_24_slots(mesh_big, big, monkeypatch, query,
     sp = nxsearch_tpu_torch.Params().set_uint("limit", MESH_LIMIT)
     got = mesh_big.search_many([query], sp)
     assert {k: v for k, v in psearch.EXEC_STATS.items()
-            if k not in GC_COUNTERS + PLAIN_COUNTERS} == \
+            if k in ROUTE_COUNTERS} == \
         {"sharded_fallback": 1}
     assert bodies == [dense]
     oracle = Oracle(big, "BM25")
@@ -298,8 +298,9 @@ def test_reference_names_the_even_neighbour():
     assert int(np.asarray(want)[0, 0]) == 1 << 24
 
     sp = psearch.SearchParams(limit=10, algo=0, fuzzymatch=False)
-    packed = psearch._dispatch_plain(corpus.plain_dev(slots), [plan], sp,
-                                     16, 1)
+    packed = psearch._dispatch_plain(
+        corpus.plain_dev(slots), psearch._Plan.batch_key.fget(plan), [plan],
+        sp, 16, 1)
     _s, got = psearch.unpack_bits(packed.numpy())
     assert int(got[0, 0]) == slots[0]
 

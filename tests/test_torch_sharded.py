@@ -48,7 +48,7 @@ from nxsearch_tpu_torch.parallel import dryrun_multichip, make_mesh
 from nxsearch_tpu_torch.parallel import sharded as psh
 from nxsearch_tpu_torch.query.parser import parse_query
 from nxsearch_tpu_torch.query.prepare import prepare
-from nxsearch_tpu_torch.utils.trace import GC_COUNTERS, PLAIN_COUNTERS
+from nxsearch_tpu_torch.utils.trace import ROUTE_COUNTERS
 
 TOL = 1e-4
 CPU = torch.device("cpu")
@@ -89,10 +89,8 @@ QUERIES = [
 
 
 def routes(stats) -> dict:
-    """The route counters, without the collector's and the plain
-    groups' lanes."""
-    return {k: v for k, v in stats.items()
-            if k not in GC_COUNTERS + PLAIN_COUNTERS}
+    """The route counters (utils/trace.ROUTE_COUNTERS)."""
+    return {k: v for k, v in stats.items() if k in ROUTE_COUNTERS}
 
 
 def jparams(**kw):

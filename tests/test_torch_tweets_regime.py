@@ -223,9 +223,9 @@ def test_plain_groups_have_spans_and_counters(tweets, tracing, monkeypatch):
     seen = []
     dispatch = psearch._dispatch_plain
 
-    def spy(dev, plans, sp, k, n_pad):
+    def spy(dev, key, plans, sp, k, n_pad):
         seen.append((list(plans), n_pad))
-        return dispatch(dev, plans, sp, k, n_pad)
+        return dispatch(dev, key, plans, sp, k, n_pad)
 
     monkeypatch.setattr(psearch, "_dispatch_plain", spy)
     psearch.EXEC_STATS.clear()
